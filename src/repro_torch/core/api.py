@@ -1,0 +1,75 @@
+"""SharedMap public API (PyTorch port).
+
+>>> from repro_torch.core.api import shared_map, SharedMapConfig
+>>> res = shared_map(graph, hierarchy)          # on the card
+>>> res = shared_map(graph, hierarchy, device="cpu")
+>>> res.pe_of, res.J
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from .graph import Graph, resolve_device
+from .hierarchy import Hierarchy
+from .mapping import evaluate_J
+from .multisection import hierarchical_multisection
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedMapConfig:
+    eps: float = 0.03
+    preset: str = "eco"          # fast | eco | strong
+    strategy: str = "bucket"     # this slice: bucket only
+    seed: int = 0
+    adaptive: bool = True        # Lemma 5.1 adaptive imbalance
+    backend: str = "auto"        # refinement: auto | xla ("ell" is the next slice)
+    coarsen_telemetry: bool = False  # not ported yet: raises when set
+    refine_mapping: bool = False     # not ported yet: raises when set
+
+
+@dataclasses.dataclass
+class SharedMapResult:
+    pe_of: np.ndarray
+    J: float
+    stats: dict
+
+
+def shared_map(g: Graph, h: Hierarchy, config: SharedMapConfig | None = None,
+               device=None) -> SharedMapResult:
+    """Solve GPMP for communication graph ``g`` on hierarchy ``h``.
+
+    ``g`` is moved to ``device`` (``None`` = the card, which must exist;
+    pass ``device="cpu"`` to run the plain versions on the CPU).
+    """
+    return shared_map_direct(g, h, config or SharedMapConfig(), device=device)
+
+
+def shared_map_direct(g: Graph, h: Hierarchy, cfg: SharedMapConfig,
+                      checkpoint=None, resident=None, device=None) -> SharedMapResult:
+    """The in-process path. ``checkpoint`` (optional zero-arg callable) is
+    called between multisection levels; raising inside it aborts the run.
+    ``resident`` must be None or True in this slice."""
+    if cfg.coarsen_telemetry:
+        raise NotImplementedError("coarsen_telemetry is not ported yet "
+                                  "(ROADMAP.md, Queue 1, item 6)")
+    dev = resolve_device(device)
+    g = g.to(dev)
+    res = hierarchical_multisection(
+        g, h, eps=cfg.eps, preset=cfg.preset, strategy=cfg.strategy,
+        seed=cfg.seed, adaptive=cfg.adaptive, backend=cfg.backend,
+        checkpoint=checkpoint, resident=resident, device=dev)
+    res.pe_of = finalize_mapping(g, h, cfg, res.pe_of, res.stats)
+    return SharedMapResult(pe_of=res.pe_of, J=evaluate_J(g, h, res.pe_of, device=dev),
+                           stats=res.stats)
+
+
+def finalize_mapping(g: Graph, h: Hierarchy, cfg: SharedMapConfig,
+                     pe_of: np.ndarray, stats: dict) -> np.ndarray:
+    """The post-multisection step. The optional block<->PE swap pass
+    (``refine_mapping=True``) waits for a later slice."""
+    if cfg.refine_mapping:
+        raise NotImplementedError("refine_mapping is not ported yet "
+                                  "(ROADMAP.md, Queue 1, item 7)")
+    return pe_of

@@ -1,0 +1,88 @@
+"""Initial partition of the coarsest graph: greedy graph growing + LP polish.
+
+Seeds are index-strided (generators and contraction preserve locality in id
+order), then blocks grow by repeatedly admitting the unassigned vertices
+with the strongest connectivity to each block, under capacity caps. Any
+leftover (disconnected) vertices fall to the lightest block, then a
+rebalanced LP pass polishes the result. Deterministic given ``salt``.
+"""
+from __future__ import annotations
+
+import torch
+
+from .graph import F32, I32, Graph, edge_mask, vertex_mask
+from .refine import (_TRASH, _admit_by_argsort, _lane_block_weights, _lookup, _vhash,
+                     _vhashes, lp_refine, rebalance)
+
+
+def initial_partition(g: Graph, k: int, Lmax: torch.Tensor, salt=0,
+                      grow_rounds: int = 24, polish_rounds: int = 6,
+                      backend: str = "auto") -> torch.Tensor:
+    """[N] labelling for one int ``salt``; [R, N] for a list of R salts
+    (the restarts of a partition call, run as a leading batch dimension)."""
+    salts = [int(s) for s in salt] if isinstance(salt, (list, tuple)) else [int(salt)]
+    R = len(salts)
+    N, M = g.N, g.M
+    dev = g.device
+    vmask = vertex_mask(g)
+    emask = edge_mask(g)
+    n = torch.clamp(g.n, min=1)
+
+    # --- seeds: k index-strided real vertices, hash-rotated by salt --------
+    offset = torch.tensor([int(_vhash(1, s, "cpu")[0]) % 97 for s in salts],
+                          dtype=I32, device=dev)
+    seed_pos = (torch.arange(k, dtype=I32, device=dev) * n) // k
+    seed_pos = (seed_pos[None, :] + offset[:, None]) % n
+    part = torch.full((R, N), k, dtype=I32, device=dev)   # k == "unassigned"
+    part.scatter_(1, seed_pos.long(), torch.arange(k, dtype=I32, device=dev).expand(R, k))
+    part = torch.where(vmask, part, k)
+
+    # --- greedy growth -------------------------------------------------------
+    lane = torch.arange(R, device=dev)[:, None] * (N * (k + 1))
+    trash = R * N * (k + 1) + torch.arange(M, device=dev) % _TRASH
+    w = torch.where(emask, g.ewgt, 0.0).expand(R, M).reshape(-1)
+    for _ in range(grow_rounds):
+        assigned = part < k
+        pc = part[:, g.cols]
+        pcols = torch.where(emask & (pc < k), pc, k)
+        flat = torch.where(emask, lane + g.rows.long() * (k + 1) + pcols, trash)
+        conn = torch.zeros(R * N * (k + 1) + _TRASH, dtype=F32, device=dev).index_add_(
+            0, flat.reshape(-1), w)[: R * N * (k + 1)].view(R, N, k + 1)[..., :k]
+        W = _assigned_weights(g, part, assigned, vmask, k)
+        fits = (W[:, None, :] + g.vwgt[None, :, None]) <= Lmax
+        score = torch.where(fits, conn, float("-inf"))
+        best = torch.argmax(score, dim=-1).to(I32)
+        sbest = score.max(dim=-1).values
+        cand = vmask & ~assigned & (sbest > 0.0)
+        # capacity prefix per target block (strongest connections first)
+        accept = _admit_by_argsort(cand, best, sbest, g.vwgt, Lmax - W, k)
+        part = torch.where(accept, best, part)
+
+    # --- leftovers -> lightest block with room (a few sweeps) ---------------
+    for _ in range(8):
+        assigned = part < k
+        W = _assigned_weights(g, part, assigned, vmask, k)
+        lightest = torch.argmin(W, dim=-1).to(I32)[:, None]
+        todo = vmask & ~assigned
+        w_cum = torch.cumsum(torch.where(todo, g.vwgt, 0.0), dim=-1)
+        Wl = _lookup(W, lightest)
+        ok = todo & ((Wl + w_cum) <= torch.maximum(Lmax, Wl + g.vwgt))
+        part = torch.where(ok, lightest, part)
+    # anything still left: round-robin by hash (guaranteed assignment)
+    left = vmask & (part >= k)
+    fallback = (_vhashes(N, [s + 5 for s in salts], dev) % k).to(I32)
+    part = torch.where(left, fallback, part)
+    part = torch.where(vmask, part, 0)
+
+    # polish with the caller's refinement backend
+    part = lp_refine(g, part, k, Lmax, rounds=polish_rounds,
+                     salt=[s + 11 for s in salts], backend=backend)
+    part = rebalance(g, part, k, Lmax, rounds=6, salt=[s + 17 for s in salts],
+                     backend=backend)
+    return part if isinstance(salt, (list, tuple)) else part[0]
+
+
+def _assigned_weights(g: Graph, part, assigned, vmask, k: int) -> torch.Tensor:
+    """[R, k] vertex weight already assigned to each block."""
+    return _lane_block_weights(torch.where(assigned & vmask, g.vwgt, 0.0),
+                               torch.where(assigned, part, 0), k)

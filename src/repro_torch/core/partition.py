@@ -1,0 +1,159 @@
+"""Multilevel k-way partitioner (the KaFFPa/Mt-KaHyPar substrate).
+
+V-cycle: HEM-coarsen until the graph is small, greedy-grow an initial
+k-way partition, project back up with LP refinement + rebalance per level.
+Presets FAST/ECO/STRONG trade rounds/restarts for quality; seeded restarts
+run and the best balanced partition wins.
+
+Every level keeps the input's padded shapes (N, M), as the reference's
+fused v-cycle does, so the two compare array for array. PyTorch runs
+eagerly: the reference's two ``lax.scan``s over levels are Python loops
+that keep each level's fine graph, and its ``vmap`` over the lanes of a
+batch is a Python loop too (lanes are independent, so the results are the
+same). The restarts of one call run as a leading batch
+dimension through the initial partition and the refinement; the
+coarsening does not depend on the restart, so they share it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from .coarsen import _i32, coarsen_once
+from .graph import F32, I32, Graph, default_ell_deg, edge_mask, resolve_device
+from .initial import initial_partition
+from .refine import batched_block_weights, lp_refine, rebalance, resolve_backend
+from ..kernels.ref import fma_f32
+
+
+@dataclasses.dataclass(frozen=True)
+class Preset:
+    name: str
+    refine_rounds: int      # LP rounds per uncoarsening level
+    coarsest_polish: int    # LP rounds on the coarsest graph
+    restarts: int           # seeded restarts
+    vcycles: int            # extra refine-only cycles at the finest level
+
+    @staticmethod
+    def get(name: str) -> "Preset":
+        return _PRESETS[name.lower()]
+
+
+_PRESETS = {
+    "fast": Preset("fast", refine_rounds=2, coarsest_polish=4, restarts=1, vcycles=0),
+    "eco": Preset("eco", refine_rounds=4, coarsest_polish=8, restarts=2, vcycles=1),
+    "strong": Preset("strong", refine_rounds=8, coarsest_polish=12, restarts=4, vcycles=2),
+}
+
+
+def num_levels(n: int, k: int, coarse_factor: int = 24,
+               max_degree: int | None = None) -> int:
+    """Static coarsening depth: HEM shrinks ~1.6x/level; stop near 24*k.
+
+    ``max_degree`` guards against matching stalls: a degree-``d`` hub lets
+    at most ``n - d`` pairs form per level. Star-like graphs (implied
+    shrink < 1.15x) stop at one level; hub-heavy ones extend the depth
+    (capped) so the coarsest graph still approaches the target size.
+    """
+    target = max(coarse_factor * k, 64)
+    if n <= target:
+        return 0
+    base = max(1, math.ceil(math.log(n / target) / math.log(1.6)))
+    if max_degree is None:
+        return base
+    pairs = max(1, min(n // 2, n - int(max_degree)))
+    shrink = n / max(1.0, n - pairs)
+    if shrink < 1.15:
+        return 1
+    shrink = min(1.6, shrink)
+    lv = math.ceil(math.log(n / target) / math.log(shrink))
+    return max(1, min(lv, 2 * base + 4))
+
+
+def _lmax(g: Graph, k: int, eps: torch.Tensor) -> torch.Tensor:
+    return (1.0 + eps) * g.total_weight() / k
+
+
+def _coarsen_levels(g: Graph, levels: int):
+    """The v-cycle's downward half: ``(fines, maps, coarsest)``, every level
+    at the shapes (N, M). Its salts depend on the level alone, never on the
+    restart, so the restarts of one call share it (the reference recomputes
+    it in each ``vmap`` lane, with the same result)."""
+    deg_c = default_ell_deg(g.N, g.M)   # static ELL cap for the coarsening kernels
+    fines, maps, cur = [], [], g
+    for lvl in range(levels):
+        gc, newid = coarsen_once(cur, salt=(lvl + 1) * 131 + 7, ell_deg=deg_c)
+        fines.append(cur)
+        maps.append(newid)
+        cur = gc
+    return fines, maps, cur
+
+
+def _partition_restarts(g: Graph, k: int, eps: torch.Tensor, preset: Preset,
+                        salts: list[int], backend: str, fines: list, maps: list,
+                        coarsest: Graph) -> torch.Tensor:
+    """The seeded restarts of one call as a leading batch dimension: [R, N]
+    labellings over the coarsening of :func:`_coarsen_levels` (with no
+    levels, the initial partition of ``g`` itself)."""
+    Lmax = _lmax(g, k, eps)
+    part = initial_partition(coarsest, k, Lmax, salt=salts,
+                             polish_rounds=preset.coarsest_polish, backend=backend)
+    for lvl in range(len(fines) - 1, -1, -1):
+        gf = fines[lvl]
+        part = part[:, maps[lvl]]   # project to the finer level
+        part = lp_refine(gf, part, k, Lmax, rounds=preset.refine_rounds,
+                         salt=[_i32(s + 1000 + lvl) for s in salts], backend=backend)
+        part = rebalance(gf, part, k, Lmax, rounds=4,
+                         salt=[_i32(s + 2000 + lvl) for s in salts], backend=backend)
+    for cyc in range(preset.vcycles):
+        part = lp_refine(g, part, k, Lmax, rounds=preset.refine_rounds,
+                         salt=[_i32(s + 3000 + cyc) for s in salts], backend=backend)
+        part = rebalance(g, part, k, Lmax, rounds=4,
+                         salt=[_i32(s + 4000 + cyc) for s in salts], backend=backend)
+    return part
+
+
+def _partition_on(g: Graph, k: int, eps: torch.Tensor, levels: int,
+                  preset_name: str, salt: int, backend: str) -> torch.Tensor:
+    preset = Preset.get(preset_name)
+    if k == 1:
+        return torch.zeros(g.N, dtype=I32, device=g.device)
+    fines, maps, coarsest = _coarsen_levels(g, levels)
+    salts = [_i32(_i32(salt) * 131 + r * 7919) for r in range(preset.restarts)]
+    parts = _partition_restarts(g, k, eps, preset, salts, backend, fines, maps, coarsest)
+    cut = torch.sum(torch.where((parts[:, g.rows] != parts[:, g.cols]) & edge_mask(g),
+                                g.ewgt, 0.0), dim=-1) / 2.0
+    over = (batched_block_weights(g, parts, k) - _lmax(g, k, eps)).clamp(min=0.0).sum(dim=-1)
+    # XLA fuses cut + 1e6 * over into one FMA: round once, as it does
+    scores = fma_f32(over, torch.tensor(1e6, dtype=F32, device=g.device), cut)
+    return parts[torch.argmin(scores)]
+
+
+def partition(g: Graph, k: int, eps, levels: int, preset_name: str = "eco",
+              salt: int = 0, backend: str = "auto", device=None) -> torch.Tensor:
+    """Balanced k-way partition of ``g`` minimizing edge-cut.
+
+    The restarts run as a batch; the winner is the best *balanced*
+    partition by edge-cut (unbalanced runs are heavily penalized). ``g``
+    is moved to ``device`` (``None`` = the card) first.
+    """
+    dev = resolve_device(device)
+    g = g.to(dev)
+    backend = resolve_backend(backend)
+    eps_t = torch.as_tensor(eps, dtype=F32, device=dev)
+    return _partition_on(g, k, eps_t, levels, preset_name, int(salt), backend)
+
+
+def batched_partition(gs: Graph, k: int, eps: torch.Tensor, salts: list[int],
+                      levels: int, preset: str, backend: str) -> torch.Tensor:
+    """Partition every lane of a stacked ``[B, ...]`` Graph: ``[B, N]`` i32.
+
+    The dispatch unit of the bucket strategy; the lanes run one after
+    another (the reference vmaps them), each with its own eps and salt.
+    """
+    out = [_partition_on(Graph(*(a[i] for a in gs)), k, eps[i], levels, preset,
+                         salts[i], backend)
+           for i in range(len(salts))]
+    return torch.stack(out)

@@ -1,0 +1,194 @@
+"""Refinement: balance-constrained label propagation (parallel FM analogue).
+
+Per round, every vertex computes its connectivity to all k blocks in one
+sparse pass, proposes the best positive-gain move that respects capacity,
+and a gain-ranked admission filter caps inflow per target block at its
+remaining capacity. A hash-colouring alternation damps oscillation.
+``rebalance`` repairs over-capacity blocks at minimal edge-cut loss.
+
+This slice ports the ``"xla"`` backend of the reference (a scatter-sum
+connectivity and a global stable argsort admission). The ``"ell"``
+backend (the ``lp_gain`` kernel with threshold admission) is the next
+slice; ``"auto"`` resolves to ``"xla"`` on every device until then.
+
+Sums of float weights go through ``index_add_``/``cumsum``, which on the
+card use atomics and parallel scans: their results are exact, and equal to
+the reference's, while all weights are integers below 2^24.
+"""
+from __future__ import annotations
+
+import torch
+
+from .graph import F32, I32, Graph, block_weights, edge_mask, vertex_mask
+
+_NEG = -1e30
+_MASK32 = 0xFFFFFFFF
+_TRASH = 4096   # spare slots that padding edges scatter into (see connectivity)
+
+
+def _u32(x: int) -> int:
+    return x & _MASK32
+
+
+def _vhash(n: int, salt: int, device) -> torch.Tensor:
+    """The reference's uint32 vertex hash, computed in i64 masked to 32 bits
+    (torch on the CPU has no uint32 shift). Values in [0, 2^32) as i64."""
+    s = _u32(_u32(salt) * 0x9E3779B9)
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    x = ((x * 2654435761) & _MASK32) ^ s
+    x = ((x ^ (x >> 15)) * 0x2C1B3C6D) & _MASK32
+    return x ^ (x >> 12)
+
+
+def _vhashes(n: int, salts: list[int], device) -> torch.Tensor:
+    """[R, n]: one :func:`_vhash` row per restart salt."""
+    return torch.stack([_vhash(n, s, device) for s in salts])
+
+
+def _batched(part: torch.Tensor, salt) -> tuple[torch.Tensor, list[int]]:
+    """``part`` as [R, N] and ``salt`` as R salts: the restarts of one
+    partition call run as a leading batch dimension (the reference's
+    ``vmap``); a single [N] labelling is the case R = 1."""
+    if part.dim() == 1:
+        return part[None], [int(salt)]
+    return part, [int(x) for x in salt]
+
+
+def resolve_backend(backend: str) -> str:
+    if backend in ("auto", "xla"):
+        return "xla"
+    if backend == "ell":
+        raise NotImplementedError(
+            "refine backend 'ell' needs the lp_gain kernel, which is the next "
+            "slice of the port (ROADMAP.md, Queue 1, 'lp_gain slice')")
+    raise ValueError(f"unknown refine backend {backend!r}")
+
+
+def connectivity(g: Graph, part: torch.Tensor, k: int) -> torch.Tensor:
+    """conn[r, u, b] = summed weight of edges from u into block b under the
+    labelling ``part[r]``.  [R, N, k] for ``part`` [R, N].
+
+    Padding edges add weight 0; they are sent to spare slots past the end
+    (cut off after the sum) so that on the card they do not pile atomics
+    onto the one slot of their anchor row. The sums are unchanged.
+    """
+    R = part.shape[0]
+    N, M = g.N, g.M
+    emask = edge_mask(g)
+    pcols = torch.where(emask, part[:, g.cols], 0)
+    lane = torch.arange(R, device=g.device)[:, None] * (N * k)
+    trash = R * N * k + torch.arange(M, device=g.device) % _TRASH
+    flat = torch.where(emask, lane + g.rows.long() * k + pcols, trash)
+    w = torch.where(emask, g.ewgt, 0.0).expand(R, M)
+    out = torch.zeros(R * N * k + _TRASH, dtype=F32, device=g.device)
+    out.index_add_(0, flat.reshape(-1), w.reshape(-1))
+    return out[: R * N * k].view(R, N, k)
+
+
+def _lane_block_weights(w: torch.Tensor, part: torch.Tensor, k: int) -> torch.Tensor:
+    """[R, k] sums of the weights ``w`` ([N] or [R, N]) per block of each
+    labelling ``part`` [R, N]."""
+    R = part.shape[0]
+    flat = torch.arange(R, device=part.device)[:, None] * k + part
+    out = torch.zeros(R * k, dtype=F32, device=part.device)
+    return out.index_add_(0, flat.reshape(-1), w.expand(part.shape).reshape(-1)).view(R, k)
+
+
+def batched_block_weights(g: Graph, part: torch.Tensor, k: int) -> torch.Tensor:
+    """[R, k] :func:`block_weights` of each labelling ``part`` [R, N]."""
+    return _lane_block_weights(g.vwgt, torch.where(vertex_mask(g), part, 0), k)
+
+
+def _pick(mat: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+    """mat[r, i, col[r, i]] for ``mat`` [R, N, k] (take_along_axis)."""
+    return mat.gather(-1, col.long()[..., None])[..., 0]
+
+
+def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[r, idx[r, i]] for a per-row table [R, k] and ids [R, N]."""
+    return table.gather(1, idx.long())
+
+
+def _block_prefix(idx: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
+    """[R, N] running weight of each entry's own block along each row,
+    ``cumsum(one_hot(idx, k) * w[..., None], axis=-2)[..., i, idx[i]]``.
+    The scan runs along the last axis of an [R, k, N] tensor: along the
+    N axis of [N, k] the card scans each of the k columns with one thread."""
+    blocks = torch.arange(k, dtype=idx.dtype, device=idx.device)[:, None]
+    cum = torch.cumsum(torch.where(idx[:, None, :] == blocks, w[:, None, :], 0.0), dim=-1)
+    return cum.gather(1, idx.long()[:, None, :])[:, 0, :]
+
+
+def _admit_by_argsort(cand, best, gbest, vw, cap, k: int) -> torch.Tensor:
+    """The global gain-ranked capacity prefix (xla backend), per row of the
+    [R, N] inputs; ``cap`` is [R, k]."""
+    inf = torch.full_like(gbest, float("inf"))
+    order = torch.argsort(torch.where(cand, -gbest, inf), dim=-1, stable=True)
+    tgt_s = best.gather(1, order)
+    cand_s = cand.gather(1, order)
+    w_s = torch.where(cand_s, vw[order], 0.0)
+    ok_s = cand_s & (_block_prefix(tgt_s, w_s, k) <= _lookup(cap.clamp(min=0.0), tgt_s))
+    return torch.zeros_like(cand).scatter_(1, order, ok_s)
+
+
+def lp_refine(g: Graph, part: torch.Tensor, k: int, Lmax: torch.Tensor,
+              rounds: int = 4, salt=0, backend: str = "auto") -> torch.Tensor:
+    """Gain-positive, capacity-respecting label propagation refinement.
+    ``part`` is one [N] labelling, or [R, N] with one salt per row."""
+    resolve_backend(backend)
+    parts, salts = _batched(part, salt)
+    vmask = vertex_mask(g)
+    h = _vhashes(g.N, salts, g.device)
+    movable = vmask   # no ELL rows here, so no truncated row to freeze
+    for r in range(rounds):
+        conn = connectivity(g, parts, k)
+        W = batched_block_weights(g, parts, k)
+        gain = conn - _pick(conn, parts)[..., None]
+        own = torch.nn.functional.one_hot(parts.long(), k).bool()
+        fits = (W[:, None, :] + g.vwgt[None, :, None]) <= Lmax
+        cand_gain = torch.where(fits & ~own, gain, _NEG)
+        best = torch.argmax(cand_gain, dim=-1).to(I32)
+        gbest = cand_gain.max(dim=-1).values
+        color = ((h + r) & 1) == 0
+        cand = movable & (gbest > 0.0) & color
+        accept = _admit_by_argsort(cand, best, gbest, g.vwgt, Lmax - W, k)
+        parts = torch.where(accept, best, parts)
+    return parts if part.dim() == 2 else parts[0]
+
+
+def rebalance(g: Graph, part: torch.Tensor, k: int, Lmax: torch.Tensor,
+              rounds: int = 8, salt=1, backend: str = "auto") -> torch.Tensor:
+    """Force epsilon-balance: drain over-capacity blocks via min-loss moves
+    (``salt`` is unused, as in the reference's xla backend). ``part`` is one
+    [N] labelling or [R, N]."""
+    resolve_backend(backend)
+    parts = part if part.dim() == 2 else part[None]
+    vmask = vertex_mask(g)
+    for _ in range(rounds):
+        conn = connectivity(g, parts, k)
+        W = batched_block_weights(g, parts, k)
+        overflow_w = (W - Lmax).clamp(min=0.0)
+        loss = _pick(conn, parts)[..., None] - conn
+        own = torch.nn.functional.one_hot(parts.long(), k).bool()
+        fits = (W[:, None, :] + g.vwgt[None, :, None]) <= Lmax
+        cand_loss = torch.where(fits & ~own, loss, float("inf"))
+        tgt = torch.argmin(cand_loss, dim=-1).to(I32)
+        lbest = cand_loss.min(dim=-1).values
+        src_over = _lookup(overflow_w, parts) > 0.0
+        cand = vmask & src_over & torch.isfinite(lbest) & (g.vwgt > 0.0)
+        order = torch.argsort(torch.where(cand, lbest, float("inf")), dim=-1, stable=True)
+        src_s = parts.gather(1, order)
+        tgt_s = tgt.gather(1, order)
+        cand_s = cand.gather(1, order)
+        w_s = torch.where(cand_s, g.vwgt[order], 0.0)
+        # drain only what is needed (allow the boundary-crossing move), fill
+        # targets only up to capacity.
+        out_ok = (_block_prefix(src_s, w_s, k) - w_s) < _lookup(overflow_w, src_s)
+        in_ok = _block_prefix(tgt_s, w_s, k) <= _lookup((Lmax - W).clamp(min=0.0), tgt_s)
+        accept = torch.zeros_like(cand).scatter_(1, order, cand_s & out_ok & in_ok)
+        parts = torch.where(accept, tgt, parts)
+    return parts if part.dim() == 2 else parts[0]
+
+
+def is_balanced(g: Graph, part: torch.Tensor, k: int, Lmax) -> bool:
+    return bool(torch.all(block_weights(g, part, k) <= Lmax + 1e-6))

@@ -1,0 +1,118 @@
+"""Plain PyTorch versions of the kernels (the correctness references).
+
+Each function computes exactly what its CUDA kernel computes. The kernel
+wrappers in ``kernels/ops.py`` run these for tensors on the CPU; the tests
+hold them against the JAX package, and ``chip_smoke.py`` holds each kernel
+against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+_F32_MIDPOINT_MASK = (1 << 29) - 1   # f64 mantissa bits below an f32 ulp
+_F32_MIDPOINT = 1 << 28              # ... set to exactly half an f32 ulp
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in float32 with ONE rounding, as a fused multiply-add.
+
+    XLA's CPU compiler fuses ``a * b + c`` into an FMA under ``jit``, so the
+    reference rounds once where a separate multiply and add round twice.
+    In float64 the product of two float32 values is exact; the sum is then
+    rounded to float64 and again to float32. That double rounding differs
+    from a single one only when the float64 sum lands exactly halfway
+    between two float32 values while the sum itself was inexact: there the
+    value is moved one float64 ulp toward the true sum (the sign of the
+    TwoSum residual) before the final rounding.
+    """
+    c64 = c.double()
+    p = a.double() * b.double()          # exact: 24 + 24 bits < 53
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)    # TwoSum: s + err == p + c exactly
+    bits = s.view(torch.int64)
+    half = (bits & _F32_MIDPOINT_MASK) == _F32_MIDPOINT
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where(half & (err != 0), torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def mapcost_ref(rows, cols, ewgt, pe_of, g_below, dvec) -> torch.Tensor:
+    """J(C,D,Pi): sum over directed edges of w * dist(pe_u, pe_v), halved."""
+    N = pe_of.shape[0]
+    pu = pe_of[rows.clamp(0, N - 1)]
+    pv = pe_of[cols.clamp(0, N - 1)]
+    diff = (pu[:, None] // g_below[None, :]) != (pv[:, None] // g_below[None, :])
+    lvl = diff.sum(dim=-1, dtype=torch.int32)
+    safe = (lvl - 1).clamp(0, dvec.shape[0] - 1)
+    d = torch.where(lvl > 0, dvec[safe], torch.zeros((), dtype=dvec.dtype,
+                                                      device=dvec.device))
+    return torch.sum(ewgt * d) / 2.0
+
+
+def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """[k, L] gather of a 1-D source: out[b, j] = src[clip(idx[b, j])]."""
+    return src[idx.clamp(0, src.shape[0] - 1)]
+
+
+def hem_row_scan(adj, adw, jit, matched, u, n_ids: int) -> torch.Tensor:
+    """Per-row heaviest-free-neighbour scan (the HEM proposal step).
+
+    ``adj``/``adw``/``jit`` are ``[T, DEG]`` rows of the padded ELL
+    adjacency (neighbour id ``n_ids`` = padding), ``matched`` a 0/1 i32
+    vector, ``u`` the ``[T]`` row ids. Returns the ``[T]`` i32 proposal per
+    row (``n_ids`` = none). The score ``adw * (1 + jj) + jj`` is rounded
+    once, as the reference's fused form (see :func:`fma_f32`).
+    """
+    Nm = matched.shape[0]
+    nbr_matched = matched[adj.clamp(0, Nm - 1)]
+    own_matched = matched[u.clamp(0, Nm - 1)]
+    valid = ((adj < n_ids) & (adj != u[:, None])
+             & (own_matched[:, None] == 0) & (nbr_matched == 0))
+    jj = jit * torch.tensor(1e-3, dtype=torch.float32, device=jit.device)
+    score = torch.where(valid, fma_f32(adw, 1.0 + jj, jj),
+                        torch.full_like(adw, float("-inf")))
+    best = score.max(dim=1).values
+    has = best > float("-inf")
+    cand = torch.where(valid & (score == best[:, None]), adj,
+                       torch.full_like(adj, n_ids))
+    prop = cand.min(dim=1).values
+    return torch.where(has, prop, torch.full_like(prop, n_ids)).to(torch.int32)
+
+
+def hem_propose_ref(adj, adw, jit, matched) -> torch.Tensor:
+    """Plain version of the hem_propose kernel: the row scan over all rows."""
+    u = torch.arange(adj.shape[0], dtype=torch.int32, device=adj.device)
+    return hem_row_scan(adj, adw, jit, matched, u, adj.shape[0])
+
+
+def merge_dedup_rows(cand, candw, sent: int):
+    """Per-row merge/dedup/accumulate (the contraction step).
+
+    ``cand [T, D2]`` holds coarse neighbour ids (``sent`` = empty slot,
+    weight 0); returns ``(nbr [T, D2], w [T, D2], cnt [T])`` where ``nbr``
+    keeps each distinct id at its FIRST slot (others ``sent``), ``w`` the
+    id's weight total and ``cnt`` the distinct count per row. Totals are a
+    FIXED chain of ``D2`` adds in slot order, the reference's order.
+    """
+    D2 = cand.shape[-1]
+    zero = torch.zeros((), dtype=candw.dtype, device=candw.device)
+    acc = torch.zeros_like(candw)
+    for i in range(D2):
+        acc = acc + torch.where(cand == cand[:, i:i + 1], candw[:, i:i + 1], zero)
+    firstpos = torch.full_like(cand, D2)
+    for i in range(D2 - 1, -1, -1):
+        firstpos = torch.where(cand == cand[:, i:i + 1],
+                               torch.full_like(cand, i), firstpos)
+    colid = torch.arange(D2, dtype=cand.dtype, device=cand.device)[None, :]
+    is_first = (firstpos == colid) & (cand != sent)
+    nbr = torch.where(is_first, cand, torch.full_like(cand, sent)).to(torch.int32)
+    w = torch.where(is_first, acc, zero)
+    cnt = is_first.sum(dim=1, dtype=torch.int32)
+    return nbr, w, cnt
+
+
+def contract_edges_ref(cand, candw, sent: int):
+    """Plain version of the contract_edges kernel."""
+    return merge_dedup_rows(cand, candw, sent)

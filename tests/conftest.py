@@ -12,3 +12,4 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration tests")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips without one")

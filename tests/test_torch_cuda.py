@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one; this file imports no JAX, so it runs on a machine with PyTorch for
+CUDA alone:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import graph as G
+from repro_torch.core.api import SharedMapConfig, shared_map
+from repro_torch.core.coarsen import _edge_jitter, contract_candidates, hem_match_ell
+from repro_torch.core.hierarchy import Hierarchy
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose_cuda
+from repro_torch.kernels.mapcost import mapcost_cuda
+from repro_torch.kernels.split import gather_rows_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    _build.library()
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def ell(cuda):
+    g = G.gen_rgg(3000, seed=5, device=cuda)
+    deg = G.default_ell_deg(g.N, g.M)
+    adj, adw, _ = G.ell_adjacency(g, deg)
+    return g, adj, adw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_gather_rows_bitwise(cuda, dtype):
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    src = torch.randint(-2**30, 2**30, (5000,), generator=gen, dtype=torch.int32)
+    if dtype == torch.float32:
+        src = src.view(torch.float32)   # arbitrary bit patterns, NaNs included
+    idx = torch.randint(-10, 5010, (3, 4099), generator=gen, dtype=torch.int32)
+    src, idx = src.to(cuda), idx.to(cuda)
+    out = gather_rows_cuda(src, idx)
+    want = ref.gather_rows_ref(src, idx)
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("salt", [979, 7])
+def test_hem_propose_bitwise(cuda, ell, salt):
+    g, adj, adw = ell
+    u2d = torch.arange(g.N, dtype=torch.int32, device=cuda)[:, None].expand(adj.shape)
+    jit = _edge_jitter(u2d, adj, salt)
+    matched = (torch.arange(g.N, device=cuda) % 7 == 0).to(torch.int32)
+    assert torch.equal(hem_propose_cuda(adj, adw, jit, matched),
+                       ref.hem_propose_ref(adj, adw, jit, matched))
+
+
+def test_contract_edges_bitwise(cuda, ell):
+    g, adj, adw = ell
+    labels = hem_match_ell(g, adj, adw, salt=138)
+    _, _, _, cand, candw = contract_candidates(g, labels, adj, adw)
+    # non-integer weights exercise the fixed add chain's rounding
+    candw = candw * torch.rand(candw.shape, device=cuda)
+    got = contract_edges_cuda(cand, candw, cand.shape[0])
+    want = ref.contract_edges_ref(cand, candw, cand.shape[0])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_mapcost_rtol(cuda, ell):
+    g = ell[0]
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    pe = torch.randint(0, 24, (g.N,), generator=gen, dtype=torch.int32).to(cuda)
+    w = (g.ewgt * torch.rand(g.ewgt.shape, device=cuda)).contiguous()
+    gb = torch.tensor([1, 4, 8], dtype=torch.int32, device=cuda)
+    dv = torch.tensor([1.0, 10.0, 100.0], device=cuda)
+    got = float(mapcost_cuda(g.rows, g.cols, w, pe, gb, dv))
+    want = float(ref.mapcost_ref(g.rows, g.cols, w, pe, gb, dv))
+    assert got == pytest.approx(want, rel=1e-5)
+
+
+def test_wrappers_count_launches_and_reject_cpu(cuda, ell):
+    g, adj, adw = ell
+    before = dict(_build.LAUNCHES)
+    gather_rows_cuda(g.ewgt, adj[:2].contiguous())
+    assert _build.LAUNCHES["gather_rows"] == before["gather_rows"] + 1
+    with pytest.raises(ValueError):
+        gather_rows_cuda(g.ewgt.cpu(), adj[:2].contiguous())
+
+
+@pytest.mark.parametrize("gen", ["grid", "rgg"])
+def test_shared_map_card_equals_cpu(cuda, gen):
+    g = G.gen_grid(24, device="cpu") if gen == "grid" else G.gen_rgg(1500, seed=2, device="cpu")
+    h = Hierarchy((4, 2), (1.0, 10.0))
+    _build.reset_launches()
+    on_card = shared_map(g, h, SharedMapConfig(), device=cuda)
+    assert all(v > 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
+    on_cpu = shared_map(g, h, SharedMapConfig(), device="cpu")
+    assert np.array_equal(on_card.pe_of, on_cpu.pe_of)
+    assert on_card.J == pytest.approx(on_cpu.J, rel=1e-6)

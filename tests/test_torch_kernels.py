@@ -1,0 +1,191 @@
+"""The port's plain kernel versions against the JAX package's, on the CPU.
+
+The same numpy inputs go through the JAX oracle (jitted, as the main path
+runs it; the JAX package's tests hold these oracles bitwise against its
+Pallas kernels in interpret mode) and through ``repro_torch``'s plain
+version. The CUDA kernels themselves are held against the plain versions
+on the card (tests/test_torch_cuda.py, chip_smoke.py).
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.coarsen import _edge_jitter as jax_edge_jitter
+from repro.kernels import ref as jref
+from repro_torch.core.coarsen import _edge_jitter
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose_cuda
+from repro_torch.kernels.mapcost import mapcost_cuda
+from repro_torch.kernels.split import gather_rows_cuda
+
+T = torch.from_numpy
+
+
+def _ell(seed: int, N: int = 600, DEG: int = 32):
+    """Random ELL rows: ids in [0, N] (N = padding, self-loops included),
+    integer weights, a 0/1 matched vector."""
+    rng = np.random.default_rng(seed)
+    adj = rng.integers(0, N + 1, (N, DEG))
+    adj = np.where(rng.random((N, DEG)) < 0.05, np.arange(N)[:, None], adj).astype(np.int32)
+    adw = np.where(adj < N, rng.integers(1, 6, (N, DEG)), 0).astype(np.float32)
+    matched = (rng.random(N) < 0.2).astype(np.int32)
+    return adj, adw, matched
+
+
+def _jitter(adj: np.ndarray, salt: int) -> np.ndarray:
+    N = adj.shape[0]
+    u2d = np.broadcast_to(np.arange(N, dtype=np.int32)[:, None], adj.shape)
+    return np.array(jax.jit(jax_edge_jitter)(jnp.asarray(u2d), jnp.asarray(adj),
+                                               jnp.int32(salt)))
+
+
+@pytest.mark.parametrize("salt", [0, 979, 203331])
+def test_edge_jitter_bitwise(salt):
+    adj = _ell(salt)[0]
+    u2d = torch.arange(adj.shape[0], dtype=torch.int32)[:, None].expand(adj.shape)
+    got = _edge_jitter(u2d, T(adj), salt).numpy()
+    assert np.array_equal(got.view(np.int32), _jitter(adj, salt).view(np.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hem_propose_ref_bitwise(seed):
+    """Real edge jitter, so the score's single rounding is exercised."""
+    adj, adw, matched = _ell(seed)
+    jit = _jitter(adj, 979 + seed)
+    want = np.asarray(jax.jit(jref.hem_propose_ref)(adj, adw, jit, matched))
+    got = ref.hem_propose_ref(T(adj), T(adw), T(jit), T(matched)).numpy()
+    assert got.dtype == np.int32
+    assert np.array_equal(got, want)
+
+
+def test_hem_score_rounds_once():
+    """Jitted JAX fuses adw * (1 + jj) + jj into one FMA on the CPU: a
+    separate multiply and add differ from it, ``fma_f32`` does not."""
+    rng = np.random.default_rng(0)
+    adj = rng.integers(0, 4096, (4096, 32)).astype(np.int32)
+    adw = rng.integers(1, 100, adj.shape).astype(np.float32)
+    jit = _jitter(adj, 979)
+
+    def score(w, j):
+        jj = j * 1e-3
+        return w * (1.0 + jj) + jj
+    want = np.asarray(jax.jit(score)(adw, jit))
+    jj = T(jit) * torch.tensor(1e-3, dtype=torch.float32)
+    fused = ref.fma_f32(T(adw), 1.0 + jj, jj).numpy()
+    separate = (T(adw) * (1.0 + jj) + jj).numpy()
+    assert np.array_equal(fused.view(np.int32), want.view(np.int32))
+    assert (separate != want).sum() > 0
+
+
+def test_restart_score_rounds_once():
+    """partition's ``cut + 1e6 * over`` is fused the same way."""
+    rng = np.random.default_rng(1)
+    cut = rng.integers(0, 1 << 20, 100_000).astype(np.float32)
+    over = (rng.random(100_000) * 100).astype(np.float32)
+    want = np.asarray(jax.jit(lambda c, o: c + 1e6 * o)(cut, over))
+    got = ref.fma_f32(T(over), torch.tensor(1e6, dtype=torch.float32), T(cut)).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_gather_rows_ref_bitwise(dtype):
+    rng = np.random.default_rng(3)
+    src = rng.integers(-1000, 1000, 777).astype(dtype) / (3 if dtype == np.float32 else 1)
+    src = src.astype(dtype)
+    idx = rng.integers(-5, 790, (4, 1000)).astype(np.int32)   # out of range: clamped
+    want = np.asarray(jax.jit(jref.gather_rows_ref)(src, idx))
+    got = ref.gather_rows_ref(T(src), T(idx)).numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("D2", [16, 64])
+def test_contract_edges_ref_bitwise(D2):
+    """Non-integer weights, so the fixed add chain's order is exercised."""
+    rng = np.random.default_rng(D2)
+    N = 500
+    cand = rng.integers(0, 40, (N, D2)).astype(np.int32)
+    cand[rng.random((N, D2)) < 0.3] = N            # sentinel slots
+    candw = np.where(cand < N, rng.random((N, D2)), 0).astype(np.float32)
+    want = jax.jit(jref.contract_edges_ref, static_argnums=2)(cand, candw, N)
+    got = ref.contract_edges_ref(T(cand), T(candw), N)
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        assert a.numpy().dtype == b.dtype
+        assert np.array_equal(a.numpy().view(np.int32), b.view(np.int32))
+
+
+def test_mapcost_ref_rtol():
+    rng = np.random.default_rng(4)
+    N, M = 900, 5000
+    rows = rng.integers(0, N, M).astype(np.int32)
+    cols = rng.integers(0, N, M).astype(np.int32)
+    ewgt = rng.random(M).astype(np.float32)
+    pe = rng.integers(0, 48, N).astype(np.int32)
+    gb = np.array([1, 4, 8], np.int32)
+    dv = np.array([1.0, 10.0, 100.0], np.float32)
+    want = float(jax.jit(jref.mapcost_ref)(rows, cols, ewgt, pe, gb, dv))
+    got = float(ref.mapcost_ref(*(T(a) for a in (rows, cols, ewgt, pe, gb, dv))))
+    assert got == pytest.approx(want, rel=1e-6)
+
+
+def test_ops_route_cpu_tensors_to_plain_versions():
+    adj, adw, matched = _ell(7)
+    jit = _jitter(adj, 5)
+    args = (T(adj), T(adw), T(jit), T(matched))
+    assert torch.equal(ops.hem_propose(*args), ref.hem_propose_ref(*args))
+    cand = T(adj)
+    got = ops.contract_edges(cand, T(adw))
+    for a, b in zip(got, ref.contract_edges_ref(cand, T(adw), cand.shape[0])):
+        assert torch.equal(a, b)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(8, dtype=torch.int32)
+    f = torch.zeros(8)
+    with pytest.raises(ValueError):
+        gather_rows_cuda(f, x[None])
+    with pytest.raises(ValueError):
+        hem_propose_cuda(x[None], f[None], f[None], x[:1])
+    with pytest.raises(ValueError):
+        contract_edges_cuda(x[None], f[None], 1)
+    with pytest.raises(ValueError):
+        mapcost_cuda(x, x, f, x, x[:1], f[:1])
+
+
+def test_port_imports_no_jax_and_no_repro():
+    code = ("import sys, repro_torch.core.api, repro_torch.kernels.ops; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_entry_points_need_the_card_unless_told():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    from repro_torch.core import graph as G
+    from repro_torch.core.api import shared_map
+    from repro_torch.core.hierarchy import Hierarchy
+    from repro_torch.core.mapping import evaluate_J
+    from repro_torch.core.partition import partition
+    g = G.gen_grid(6, device="cpu")
+    h = Hierarchy((2, 2), (1.0, 10.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shared_map(g, h)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        G.gen_grid(6)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        partition(g, 2, 0.03, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_J(g, h, np.zeros(36, np.int32))
