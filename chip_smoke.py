@@ -6,15 +6,23 @@
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` and prints the build time.
 2. Holds every kernel against its plain PyTorch version on the card, on
-   inputs captured from the main path at its top-level shapes, and times
-   both (CUDA events, median of several runs after a warm-up).
+   inputs captured from the main path at its top-level shapes (``lp_gain``:
+   from the root's partition call, both restarts), and times both (CUDA
+   events, median of several runs after a warm-up).
 3. Runs ``shared_map`` on small unit-weight instances on the card and on
-   the CPU and requires the same ``pe_of``.
-4. Profiles the root's partition call (device busy share, top kernels).
-5. Runs the main path at a real size: ``gen_rgg(2**20, seed=0)`` on the
-   hierarchy 4:8:6 with D = 1:10:100 (k = 192) and ``SharedMapConfig()``,
-   twice, with every kernel's launch count read around the first run.
-6. Prints one JSON line with every kernel's numbers, then the contract's
+   the CPU, with the refinement backend pinned to ``ell`` and to ``xla`` on
+   both sides, and requires the same ``pe_of``.
+4. Runs the other strategies on the card at ``gen_rgg(2**16)`` on 4:8:6:
+   ``device`` equals its ``resident=False`` twin with one array fetch,
+   ``layer`` runs, ``queue`` equals ``naive``.
+5. Profiles the root's partition call under ``ell`` and under ``xla``
+   (device busy share, device ops, top kernels).
+6. Runs the main path at a real size: ``gen_rgg(2**20, seed=0)`` on the
+   hierarchy 4:8:6 with D = 1:10:100 (k = 192) and ``SharedMapConfig()``
+   (``auto`` = ``ell`` on the card) and with ``xla`` pinned for comparison,
+   twice each in turns (ell, xla, xla, ell). Every path reads the launch
+   counts around its run.
+7. Prints one JSON line with every kernel's numbers, then the contract's
    last line. Any failed check raises, and the script exits non-zero.
 
 It needs a CUDA device and the repository's ``src/``; without either it
@@ -36,12 +44,14 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 
 RGG_N = 2**20
+RGG_N_STRATEGIES = 2**16   # the device strategy keeps every lane at the root's shape
 HIERARCHY = ("4:8:6", "1:10:100")
 TPU_KERNELS = {   # the TPU kernel each CUDA kernel replaces (wrapper def line)
     "gather_rows": "src/repro/kernels/split.py:34",
     "hem_propose": "src/repro/kernels/coarsen_kernels.py:59",
     "contract_edges": "src/repro/kernels/coarsen_kernels.py:98",
     "mapcost": "src/repro/kernels/mapcost.py:52",
+    "lp_gain": "src/repro/kernels/lp_gain.py:51",
 }
 
 
@@ -68,15 +78,35 @@ def _bound(nbytes: int, flops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _capture(module, name: str, store: list):
-    """Wrap ``module.name`` so each call's arguments are kept in ``store``."""
+def _capture(module, name: str, store: list, last_only: bool = False):
+    """Wrap ``module.name`` so each call's arguments are kept in ``store``
+    (only the latest call's with ``last_only``)."""
     orig = getattr(module, name)
 
     def rec(*args):
+        if last_only:
+            store.clear()
         store.append(args)
         return orig(*args)
     setattr(module, name, rec)
     return orig
+
+
+def _run_path(name, fn, expect, _build):
+    """Drive one path with every launch count set to 0 just before it and
+    read just after; fail if a kernel of the path never launched."""
+    import torch
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    missing = [k for k in expect if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels of the path never launched: {missing}")
+    return out, seconds, launches
 
 
 def main() -> int:
@@ -92,11 +122,15 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import coarsen as C
     from repro_torch.core import graph as G
-    from repro_torch.core.api import SharedMapConfig, shared_map
+    from repro_torch.core import multisection as MS
+    from repro_torch.core import refine as R
+    from repro_torch.core.api import SharedMapConfig, shared_map, shared_map_direct
     from repro_torch.core.hierarchy import _tables, parse_hierarchy
     from repro_torch.core.mapping import evaluate_J
+    from repro_torch.core.partition import num_levels, partition
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose_cuda
+    from repro_torch.kernels.lp_gain import lp_gain_cuda
     from repro_torch.kernels.mapcost import mapcost_cuda
     from repro_torch.kernels.split import gather_rows_cuda
 
@@ -119,8 +153,14 @@ def main() -> int:
     N0, M0 = 1 << (n - 1).bit_length(), 1 << (m - 1).bit_length()
     gp = G.repad_device(g, N0, M0)
     h = parse_hierarchy(*HIERARCHY)
+    top = h.a[-1]
+    lv = num_levels(N0, top)
+    deg_root = G.default_ell_deg(1, (m + n - 1) // n)   # the planner's root cap
+    over = int(((g.indptr[1:] - g.indptr[:-1]) > deg_root).sum())
     print(f"rgg n={n} m={m} padded N={N0} M={M0} built in "
-          f"{time.perf_counter() - t0:.1f} s; hierarchy {h} k={h.k}", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; hierarchy {h} k={h.k}; root call "
+          f"k={top}, {lv} levels, ELL cap {deg_root}, {over} rows over the cap",
+          flush=True)
 
     # ---- 2. every kernel against its plain version on the card ------------
     hem_in, con_in, gat_in = [], [], []
@@ -128,9 +168,7 @@ def main() -> int:
              _capture(C.kops, "contract_edges", con_in),
              _capture(G.kops, "gather_rows", gat_in)]
     try:
-        deg = G.default_ell_deg(N0, M0)
-        gc, _ = C.coarsen_once(gp, salt=138, ell_deg=deg)   # level 0 of restart 0
-        top = h.a[-1]
+        gc, _ = C.coarsen_once(gp, salt=138, ell_deg=deg_root)   # the root's level 0
         part = (torch.arange(N0, device=dev, dtype=torch.int64) * top // N0).to(torch.int32)
         sent = gp.n.clone()
         orig = torch.arange(N0, dtype=torch.int32, device=dev)
@@ -204,77 +242,158 @@ def main() -> int:
     del hem_in, con_in, gat_in, src, idx, adj, cand, candw
     torch.cuda.empty_cache()
 
+    # lp_gain: the last call of the root's partition call under "ell" (the
+    # finest level's v-cycle, both eco restarts), as the planner issues it
+    lp_in = []
+    saved = _capture(R.kops, "lp_gain", lp_in, last_only=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        partition(gp, top, 0.03, lv, "eco", 0, "ell", deg_root, device=dev)
+        torch.cuda.synchronize()
+        root_s = time.perf_counter() - t0
+    finally:
+        R.kops.lp_gain = saved
+    adj, adw, parts, kk = lp_in[0]
+    Nl, Dl = adj.shape
+    Rl = parts.shape[0]
+    nbr = torch.where(adj < Nl, parts[:, adj.clamp(0, Nl - 1)], 0).long()
+    print(f"root partition call under ell: {root_s:.2f} s; lp_gain captured at "
+          f"N={Nl} DEG={Dl} R={Rl} k={kk}", flush=True)
+    check("lp_gain", lambda a, w, p: lp_gain_cuda(a, w, p, kk),
+          lambda a, w, p: ref.lp_gain_ref(a, w, p, kk), (adj, adw, parts), True,
+          8 * Nl * Dl + 4 * Rl * Nl + Rl * Nl * (4 * kk + 8), Rl * Nl * Dl,
+          library=lambda a, w, p: torch.zeros(Rl, Nl, kk, device=dev).scatter_add_(
+              2, nbr, w.expand(Rl, Nl, Dl)))
+    del lp_in, adj, adw, parts, nbr
+    torch.cuda.empty_cache()
+
     # ---- 3. small instances: the card's pe_of equals the CPU's -------------
     small_h = parse_hierarchy("4:2", "1:10")
     for name, gs in (("grid 32x32", G.gen_grid(32, device="cpu")),
                      ("rgg 2000", G.gen_rgg(2000, seed=3, device="cpu"))):
-        a = shared_map(gs, small_h, SharedMapConfig(), device=dev)
-        b = shared_map(gs, small_h, SharedMapConfig(), device="cpu")
-        if not np.array_equal(a.pe_of, b.pe_of):
-            raise AssertionError(f"{name}: pe_of on the card differs from the CPU's")
-        print(f"small {name}: pe_of equal on card and CPU, J {a.J} / {b.J}", flush=True)
+        for backend in ("ell", "xla"):
+            cfg = SharedMapConfig(backend=backend)
+            a = shared_map(gs, small_h, cfg, device=dev)
+            b = shared_map(gs, small_h, cfg, device="cpu")
+            if not np.array_equal(a.pe_of, b.pe_of):
+                raise AssertionError(f"{name}, {backend}: pe_of on the card differs "
+                                     "from the CPU's")
+            print(f"small {name} backend {backend}: pe_of equal on card and CPU, "
+                  f"J {a.J} / {b.J}", flush=True)
 
-    # ---- 4. where the time goes: the root's partition call, profiled ------
-    from repro_torch.core.partition import num_levels, partition
-    top = h.a[-1]
-    lv = num_levels(N0, top)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        partition(gp, top, 0.03, lv, "eco", 0, device=dev)
+    # ---- 4. the other strategies on the card, at rgg 2^16 ------------------
+    gsm = G.gen_rgg(RGG_N_STRATEGIES, seed=0, device=dev)
+    every = list(_build.LAUNCHES)
+    strat = {}
+
+    host_split = [k for k in every if k != "gather_rows"]   # split on the host
+
+    def run_strategy(label, cfg, resident=None, expect=every, backend="ell"):
+        def go():
+            MS.reset_transfer_stats()
+            res = shared_map_direct(gsm, h, cfg, resident=resident, device=dev)
+            return res, MS.transfer_stats()
+        (res, xfer), sec, launches = _run_path(label, go, expect, _build)
+        if res.stats["backend"] != backend:
+            raise AssertionError(f"{label}: backend {res.stats['backend']!r}")
+        strat[label] = res
+        print(f"strategy {label} rgg n={RGG_N_STRATEGIES} on {h}: {sec:.2f} s, "
+              f"J {res.J}, partition calls {res.stats['partition_calls']}, array "
+              f"fetches {xfer['d2h_array_fetches']}, launches {launches}", flush=True)
+        return xfer
+    run_strategy("bucket", SharedMapConfig())
+    run_strategy("bucket, xla pinned", SharedMapConfig(backend="xla"),
+                 expect=[k for k in every if k != "lp_gain"], backend="xla")
+    xfer = run_strategy("device", SharedMapConfig(strategy="device"))
+    if xfer["d2h_array_fetches"] != 1:
+        raise AssertionError(f"device strategy fetched {xfer['d2h_array_fetches']} arrays")
+    run_strategy("device resident=False", SharedMapConfig(strategy="device"), False,
+                 host_split)
+    if not np.array_equal(strat["device"].pe_of, strat["device resident=False"].pe_of):
+        raise AssertionError("device strategy differs from its resident=False twin")
+    run_strategy("layer", SharedMapConfig(strategy="layer"))
+    run_strategy("naive", SharedMapConfig(strategy="naive"), expect=host_split)
+    run_strategy("queue", SharedMapConfig(strategy="queue"), expect=host_split)
+    if not np.array_equal(strat["queue"].pe_of, strat["naive"].pe_of):
+        raise AssertionError("queue strategy differs from naive")
+    if not np.array_equal(strat["bucket"].pe_of, strat["naive"].pe_of):
+        raise AssertionError("bucket strategy differs from naive")
+    print("strategies: device equals its twin with one array fetch; queue equals "
+          "naive equals bucket", flush=True)
+    del gsm, strat
+    torch.cuda.empty_cache()
+
+    # ---- 5. where the time goes: the root's partition call, profiled ------
+    # Device time and op counts come from the CUDA-side events alone (kernels,
+    # copies, sets): an aten op's own entry repeats the time of the kernels
+    # it launched. A first, tiny profile takes the tracer's start-up cost.
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        torch.ones(1, device=dev).add_(1)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in events)
-    print(f"profile: root partition call (N={N0}, M={M0}, k={top}, {lv} levels, "
-          f"eco): wall {wall:.2f} s under the profiler, device busy "
-          f"{busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f}%), "
-          f"{sum(e.count for e in events)} device ops", flush=True)
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"profile:   {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d}x  "
-              f"{e.key[:90]}", flush=True)
-    del prof, events
+    for backend, deg in (("ell", deg_root), ("xla", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            partition(gp, top, 0.03, lv, "eco", 0, backend, deg, device=dev)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in events)
+        print(f"profile: root partition call (N={N0}, M={M0}, k={top}, {lv} levels, "
+              f"eco, {backend}, cap {deg}): wall {wall:.2f} s under the profiler, "
+              f"device busy {busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f}%), "
+              f"{sum(e.count for e in events)} device ops", flush=True)
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"profile:   {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d}x  "
+                  f"{e.key[:90]}", flush=True)
+        del prof, events
 
-    # ---- 5. the main path at a real size -----------------------------------
-    cfg = SharedMapConfig()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    res = shared_map(g, h, cfg, device=dev)
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    t0 = time.perf_counter()
-    res2 = shared_map(g, h, cfg, device=dev)
-    torch.cuda.synchronize()
-    t_second = time.perf_counter() - t0
+    # ---- 6. the main path at a real size, and xla pinned, in turns ---------
+    def main_path(cfg):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = shared_map(g, h, cfg, device=dev)
+        return out, torch.cuda.max_memory_allocated()
+    no_lp = [k for k in every if k != "lp_gain"]
+    (res, peak), t_first, launches = _run_path(
+        "main path", lambda: main_path(SharedMapConfig()), every, _build)
+    (res_x, peak_x), t_xla, launches_x = _run_path(
+        "xla pinned", lambda: main_path(SharedMapConfig(backend="xla")), no_lp, _build)
+    (res_x2, _), t_xla2, _ = _run_path(
+        "xla pinned, second run", lambda: main_path(SharedMapConfig(backend="xla")),
+        no_lp, _build)
+    (res2, _), t_second, _ = _run_path(
+        "main path, second run", lambda: main_path(SharedMapConfig()), every, _build)
     pe = res.pe_of
     rng = np.random.default_rng(0)
     j_rand = evaluate_J(g, h, rng.integers(0, h.k, n).astype(np.int32), device=dev)
-    bw = np.bincount(pe, weights=g.vwgt[:n].cpu().numpy(), minlength=h.k)
-    print(f"main path rgg n={n} on {h}: first {t_first:.2f} s, second "
-          f"{t_second:.2f} s, backend {res.stats['backend']}, J {res.J}, "
-          f"J random {j_rand}, max/avg block weight {bw.max() / bw.mean():.4f}, "
-          f"peak memory {peak} B, partition calls {res.stats['partition_calls']}, "
-          f"launches {launches}", flush=True)
-    print("main path seconds per hierarchy level (first run): "
-          + ", ".join(f"{x['graphs']} graphs {x['seconds']:.2f} s"
-                      for x in res.stats["levels"]), flush=True)
-    if res.stats["backend"] != "xla":
-        raise AssertionError(f"backend {res.stats['backend']!r}, expected 'xla'")
-    if not all(v > 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+    wv = g.vwgt[:n].cpu().numpy()
+    for label, r, t1, t2, pk, ln in (("main path", res, t_first, t_second, peak, launches),
+                                     ("xla pinned", res_x, t_xla, t_xla2, peak_x, launches_x)):
+        bw = np.bincount(r.pe_of, weights=wv, minlength=h.k)
+        print(f"{label} rgg n={n} on {h}: first {t1:.2f} s, second {t2:.2f} s, backend "
+              f"{r.stats['backend']}, J {r.J}, J random {j_rand}, max/avg block "
+              f"weight {bw.max() / bw.mean():.4f}, peak memory {pk} B, partition "
+              f"calls {r.stats['partition_calls']}, launches {ln}", flush=True)
+        print(f"{label} seconds per hierarchy level: "
+              + ", ".join(f"{x['graphs']} graphs {x['seconds']:.2f} s"
+                          for x in r.stats["levels"]), flush=True)
+    if res.stats["backend"] != "ell":
+        raise AssertionError(f"backend {res.stats['backend']!r}, expected 'ell'")
+    if res_x.stats["backend"] != "xla":
+        raise AssertionError(f"backend {res_x.stats['backend']!r}, expected 'xla'")
     if pe.shape != (n,) or pe.min() < 0 or pe.max() >= h.k:
         raise AssertionError("pe_of out of range")
-    if not np.array_equal(pe, res2.pe_of):
-        raise AssertionError("two runs of the main path gave different pe_of")
-    if not res.J < j_rand:
-        raise AssertionError(f"J {res.J} not below the random mapping's {j_rand}")
+    if not (np.array_equal(pe, res2.pe_of) and np.array_equal(res_x.pe_of, res_x2.pe_of)):
+        raise AssertionError("two runs of one path gave different pe_of")
+    for r in (res, res_x):
+        if not r.J < j_rand:
+            raise AssertionError(f"J {r.J} not below the random mapping's {j_rand}")
 
-    # ---- 6. the kernels line and the contract's last line -------------------
+    # ---- 7. the kernels line and the contract's last line -------------------
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))

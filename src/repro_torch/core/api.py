@@ -21,10 +21,15 @@ from .multisection import hierarchical_multisection
 class SharedMapConfig:
     eps: float = 0.03
     preset: str = "eco"          # fast | eco | strong
-    strategy: str = "bucket"     # this slice: bucket only
+    strategy: str = "bucket"     # naive | layer | bucket | queue | device
+    # ("device" = the fully device-resident level loop: fixed root-shape
+    #  schedule, on-device split/eps/pe accumulation, exactly ONE
+    #  device->host fetch per request; see core/multisection.py.)
     seed: int = 0
     adaptive: bool = True        # Lemma 5.1 adaptive imbalance
-    backend: str = "auto"        # refinement: auto | xla ("ell" is the next slice)
+    backend: str = "auto"        # refinement: auto | ell | xla
+    # ("ell" = the lp_gain kernel over the padded [N, DEG] adjacency;
+    #  "auto" picks it on the card and "xla" on the CPU.)
     coarsen_telemetry: bool = False  # not ported yet: raises when set
     refine_mapping: bool = False     # not ported yet: raises when set
 
@@ -50,7 +55,8 @@ def shared_map_direct(g: Graph, h: Hierarchy, cfg: SharedMapConfig,
                       checkpoint=None, resident=None, device=None) -> SharedMapResult:
     """The in-process path. ``checkpoint`` (optional zero-arg callable) is
     called between multisection levels; raising inside it aborts the run.
-    ``resident`` must be None or True in this slice."""
+    ``resident`` overrides the planner strategies' device residency (None =
+    the strategy's default); ``False`` runs the bitwise host-mirror twin."""
     if cfg.coarsen_telemetry:
         raise NotImplementedError("coarsen_telemetry is not ported yet "
                                   "(ROADMAP.md, Queue 1, item 6)")

@@ -76,6 +76,56 @@ def adaptive_epsilon(eps: float, total_weight: float, sub_weight: float,
     return max(ratio ** (1.0 / depth) - 1.0, 0.0)
 
 
+def _powf(x: torch.Tensor, depth: int) -> torch.Tensor:
+    """``x ** float32(1 / depth)`` in float32, rounded as the reference's
+    XLA program rounds it on the CPU.
+
+    XLA rewrites a power of 1 to ``x`` and of 0.5 to a correctly rounded
+    ``sqrt``, and calls the C library's ``powf`` for any other exponent;
+    torch's own float32 ``pow`` and, on the CPU, its float32 ``sqrt`` round
+    differently in a few cases in a thousand (ROADMAP.md, Queue 3). The
+    port takes the square root in float64 (exact before the one rounding
+    to float32) and on the CPU calls ``powf`` itself, one value at a time
+    (a level has at most a few hundred). On the card it uses torch's
+    ``pow``, so that the ``device`` strategy never fetches weights; the
+    device path and its host twin share this function and so its bits.
+    """
+    if depth == 1:
+        return x
+    if depth == 2:
+        return torch.sqrt(x.double()).float()
+    e = float(torch.tensor(1.0 / depth, dtype=torch.float32))
+    if x.device.type != "cpu":
+        return torch.pow(x, e)
+    import ctypes
+    import ctypes.util
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.powf.restype = ctypes.c_float
+    libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    vals = [libm.powf(v, e) for v in x.reshape(-1).tolist()]
+    return torch.tensor(vals, dtype=torch.float32).reshape(x.shape)
+
+
+def adaptive_epsilon_tensor(eps: float, total_weight: torch.Tensor,
+                            sub_weight: torch.Tensor, k: int, k_sub: int,
+                            depth: int) -> torch.Tensor:
+    """Lemma 5.1 in float32 over [B] subgraph weights, on their device (the
+    reference's ``adaptive_epsilon_jnp``): the ``device`` strategy computes
+    every level's eps without fetching the weights. Its host twin runs this
+    same function on the same device, so both get the same eps bits; for
+    integer vertex weights below 2^24 the inputs themselves are exact.
+    """
+    dev = sub_weight.device
+    if depth <= 0:
+        return torch.full(sub_weight.shape, eps, dtype=torch.float32, device=dev)
+
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+    ratio = ((f32(1.0 + eps) * (f32(k_sub) * total_weight))
+             / (f32(k) * torch.clamp(sub_weight, min=f32(1e-12))))
+    return torch.clamp(_powf(ratio, depth) - 1.0, min=0.0)
+
+
 def parse_hierarchy(hs: str, ds: str) -> Hierarchy:
     """Parse 'a1:a2:a3' / 'd1:d2:d3' strings (paper notation)."""
     return Hierarchy(a=tuple(int(x) for x in hs.split(":")),

@@ -17,7 +17,7 @@ from .refine import (_TRASH, _admit_by_argsort, _lane_block_weights, _lookup, _v
 
 def initial_partition(g: Graph, k: int, Lmax: torch.Tensor, salt=0,
                       grow_rounds: int = 24, polish_rounds: int = 6,
-                      backend: str = "auto") -> torch.Tensor:
+                      backend: str = "auto", ell_deg: int | None = None) -> torch.Tensor:
     """[N] labelling for one int ``salt``; [R, N] for a list of R salts
     (the restarts of a partition call, run as a leading batch dimension)."""
     salts = [int(s) for s in salt] if isinstance(salt, (list, tuple)) else [int(salt)]
@@ -74,11 +74,11 @@ def initial_partition(g: Graph, k: int, Lmax: torch.Tensor, salt=0,
     part = torch.where(left, fallback, part)
     part = torch.where(vmask, part, 0)
 
-    # polish with the caller's refinement backend
+    # polish with the caller's refinement backend and ELL cap
     part = lp_refine(g, part, k, Lmax, rounds=polish_rounds,
-                     salt=[s + 11 for s in salts], backend=backend)
+                     salt=[s + 11 for s in salts], backend=backend, ell_deg=ell_deg)
     part = rebalance(g, part, k, Lmax, rounds=6, salt=[s + 17 for s in salts],
-                     backend=backend)
+                     backend=backend, ell_deg=ell_deg)
     return part if isinstance(salt, (list, tuple)) else part[0]
 
 

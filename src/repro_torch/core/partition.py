@@ -76,12 +76,13 @@ def _lmax(g: Graph, k: int, eps: torch.Tensor) -> torch.Tensor:
     return (1.0 + eps) * g.total_weight() / k
 
 
-def _coarsen_levels(g: Graph, levels: int):
+def _coarsen_levels(g: Graph, levels: int, ell_deg: int | None):
     """The v-cycle's downward half: ``(fines, maps, coarsest)``, every level
     at the shapes (N, M). Its salts depend on the level alone, never on the
     restart, so the restarts of one call share it (the reference recomputes
-    it in each ``vmap`` lane, with the same result)."""
-    deg_c = default_ell_deg(g.N, g.M)   # static ELL cap for the coarsening kernels
+    it in each ``vmap`` lane, with the same result). The coarsening kernels
+    use the refinement's ELL cap where the caller pinned one."""
+    deg_c = ell_deg if ell_deg is not None else default_ell_deg(g.N, g.M)
     fines, maps, cur = [], [], g
     for lvl in range(levels):
         gc, newid = coarsen_once(cur, salt=(lvl + 1) * 131 + 7, ell_deg=deg_c)
@@ -92,37 +93,44 @@ def _coarsen_levels(g: Graph, levels: int):
 
 
 def _partition_restarts(g: Graph, k: int, eps: torch.Tensor, preset: Preset,
-                        salts: list[int], backend: str, fines: list, maps: list,
-                        coarsest: Graph) -> torch.Tensor:
+                        salts: list[int], backend: str, ell_deg: int | None,
+                        fines: list, maps: list, coarsest: Graph) -> torch.Tensor:
     """The seeded restarts of one call as a leading batch dimension: [R, N]
     labellings over the coarsening of :func:`_coarsen_levels` (with no
     levels, the initial partition of ``g`` itself)."""
     Lmax = _lmax(g, k, eps)
     part = initial_partition(coarsest, k, Lmax, salt=salts,
-                             polish_rounds=preset.coarsest_polish, backend=backend)
+                             polish_rounds=preset.coarsest_polish, backend=backend,
+                             ell_deg=ell_deg)
     for lvl in range(len(fines) - 1, -1, -1):
         gf = fines[lvl]
         part = part[:, maps[lvl]]   # project to the finer level
         part = lp_refine(gf, part, k, Lmax, rounds=preset.refine_rounds,
-                         salt=[_i32(s + 1000 + lvl) for s in salts], backend=backend)
+                         salt=[_i32(s + 1000 + lvl) for s in salts], backend=backend,
+                         ell_deg=ell_deg)
         part = rebalance(gf, part, k, Lmax, rounds=4,
-                         salt=[_i32(s + 2000 + lvl) for s in salts], backend=backend)
+                         salt=[_i32(s + 2000 + lvl) for s in salts], backend=backend,
+                         ell_deg=ell_deg)
     for cyc in range(preset.vcycles):
         part = lp_refine(g, part, k, Lmax, rounds=preset.refine_rounds,
-                         salt=[_i32(s + 3000 + cyc) for s in salts], backend=backend)
+                         salt=[_i32(s + 3000 + cyc) for s in salts], backend=backend,
+                         ell_deg=ell_deg)
         part = rebalance(g, part, k, Lmax, rounds=4,
-                         salt=[_i32(s + 4000 + cyc) for s in salts], backend=backend)
+                         salt=[_i32(s + 4000 + cyc) for s in salts], backend=backend,
+                         ell_deg=ell_deg)
     return part
 
 
 def _partition_on(g: Graph, k: int, eps: torch.Tensor, levels: int,
-                  preset_name: str, salt: int, backend: str) -> torch.Tensor:
+                  preset_name: str, salt: int, backend: str,
+                  ell_deg: int | None) -> torch.Tensor:
     preset = Preset.get(preset_name)
     if k == 1:
         return torch.zeros(g.N, dtype=I32, device=g.device)
-    fines, maps, coarsest = _coarsen_levels(g, levels)
+    fines, maps, coarsest = _coarsen_levels(g, levels, ell_deg)
     salts = [_i32(_i32(salt) * 131 + r * 7919) for r in range(preset.restarts)]
-    parts = _partition_restarts(g, k, eps, preset, salts, backend, fines, maps, coarsest)
+    parts = _partition_restarts(g, k, eps, preset, salts, backend, ell_deg,
+                                fines, maps, coarsest)
     cut = torch.sum(torch.where((parts[:, g.rows] != parts[:, g.cols]) & edge_mask(g),
                                 g.ewgt, 0.0), dim=-1) / 2.0
     over = (batched_block_weights(g, parts, k) - _lmax(g, k, eps)).clamp(min=0.0).sum(dim=-1)
@@ -132,28 +140,49 @@ def _partition_on(g: Graph, k: int, eps: torch.Tensor, levels: int,
 
 
 def partition(g: Graph, k: int, eps, levels: int, preset_name: str = "eco",
-              salt: int = 0, backend: str = "auto", device=None) -> torch.Tensor:
+              salt: int = 0, backend: str = "auto", ell_deg: int | None = None,
+              device=None) -> torch.Tensor:
     """Balanced k-way partition of ``g`` minimizing edge-cut.
 
     The restarts run as a batch; the winner is the best *balanced*
-    partition by edge-cut (unbalanced runs are heavily penalized). ``g``
+    partition by edge-cut (unbalanced runs are heavily penalized).
+    ``ell_deg`` pins the ELL degree cap of the ``"ell"`` refinement and of
+    the coarsening; pass one computed from the REAL vertex and edge counts
+    (the default, from the padded shapes, is skewed by the padding). ``g``
     is moved to ``device`` (``None`` = the card) first.
     """
     dev = resolve_device(device)
     g = g.to(dev)
-    backend = resolve_backend(backend)
+    backend = resolve_backend(backend, dev)
     eps_t = torch.as_tensor(eps, dtype=F32, device=dev)
-    return _partition_on(g, k, eps_t, levels, preset_name, int(salt), backend)
+    return _partition_on(g, k, eps_t, levels, preset_name, int(salt), backend, ell_deg)
 
 
 def batched_partition(gs: Graph, k: int, eps: torch.Tensor, salts: list[int],
-                      levels: int, preset: str, backend: str) -> torch.Tensor:
+                      levels: int, preset: str, backend: str,
+                      ell_deg: int | None = None) -> torch.Tensor:
     """Partition every lane of a stacked ``[B, ...]`` Graph: ``[B, N]`` i32.
 
-    The dispatch unit of the bucket strategy; the lanes run one after
+    The dispatch unit of the planner strategies; the lanes run one after
     another (the reference vmaps them), each with its own eps and salt.
     """
+    backend = resolve_backend(backend, gs.device)
     out = [_partition_on(Graph(*(a[i] for a in gs)), k, eps[i], levels, preset,
-                         salts[i], backend)
+                         salts[i], backend, ell_deg)
            for i in range(len(salts))]
     return torch.stack(out)
+
+
+def partition_host(g: Graph, k: int, eps: float, preset: str = "eco", salt: int = 0,
+                   backend: str = "auto", device=None) -> torch.Tensor:
+    """:func:`partition` with the level count and ELL cap chosen from the
+    REAL sizes, not the padded shapes; the largest degree feeds
+    ``num_levels``' matching-stall guard (star-like graphs)."""
+    dev = resolve_device(device)
+    g = g.to(dev)
+    n, m = int(g.n), int(g.m)
+    ind = g.indptr.cpu().numpy()
+    maxdeg = int((ind[1:n + 1] - ind[:n]).max()) if n > 0 else 0
+    lv = num_levels(n, k, max_degree=maxdeg)
+    deg = default_ell_deg(n, m) if resolve_backend(backend, dev) == "ell" else None
+    return partition(g, k, eps, lv, preset, salt, backend, deg, device=dev)

@@ -2,14 +2,24 @@
 
 Per round, every vertex computes its connectivity to all k blocks in one
 sparse pass, proposes the best positive-gain move that respects capacity,
-and a gain-ranked admission filter caps inflow per target block at its
-remaining capacity. A hash-colouring alternation damps oscillation.
-``rebalance`` repairs over-capacity blocks at minimal edge-cut loss.
+and an admission filter caps inflow per target block at its remaining
+capacity. A hash-colouring alternation damps oscillation. ``rebalance``
+repairs over-capacity blocks at minimal edge-cut loss.
 
-This slice ports the ``"xla"`` backend of the reference (a scatter-sum
-connectivity and a global stable argsort admission). The ``"ell"``
-backend (the ``lp_gain`` kernel with threshold admission) is the next
-slice; ``"auto"`` resolves to ``"xla"`` on every device until then.
+Backends, as in the reference, selected per call with ``backend=``:
+
+* ``"xla"``: connectivity by a scatter-sum over the edges, admission by a
+  global stable argsort and a per-block capacity prefix.
+* ``"ell"``: the CSR arrays are laid out once per call as the padded
+  ``[N, DEG]`` ELL adjacency (``graph.ell_adjacency``) and each round's
+  connectivity comes from ``kernels.ops.lp_gain`` (the CUDA kernel on the
+  card, its plain version on the CPU). Admission is per-block gain-threshold
+  bisection (:func:`_admit_by_threshold`), with ties split by a per-vertex
+  hash jitter. Rows of degree above DEG have truncated connectivity:
+  ``lp_refine`` freezes them, ``rebalance`` keeps them movable.
+* ``"auto"``: ``"ell"`` on a CUDA device and ``"xla"`` on the CPU: the
+  reference picks ``"ell"`` wherever its kernels are live, and the port's
+  kernels are live exactly on the card.
 
 Sums of float weights go through ``index_add_``/``cumsum``, which on the
 card use atomics and parallel scans: their results are exact, and equal to
@@ -19,9 +29,13 @@ from __future__ import annotations
 
 import torch
 
-from .graph import F32, I32, Graph, block_weights, edge_mask, vertex_mask
+from .graph import (F32, I32, Graph, block_weights, default_ell_deg, edge_mask,
+                    ell_adjacency, vertex_mask)
+from ..kernels import ops as kops
 
 _NEG = -1e30
+_THRESHOLD_ITERS = 24   # bisection resolution: max_gain * 2^-24
+_TIE_JITTER = 1e-3      # relative per-vertex jitter splitting gain ties
 _MASK32 = 0xFFFFFFFF
 _TRASH = 4096   # spare slots that padding edges scatter into (see connectivity)
 
@@ -54,14 +68,14 @@ def _batched(part: torch.Tensor, salt) -> tuple[torch.Tensor, list[int]]:
     return part, [int(x) for x in salt]
 
 
-def resolve_backend(backend: str) -> str:
-    if backend in ("auto", "xla"):
-        return "xla"
-    if backend == "ell":
-        raise NotImplementedError(
-            "refine backend 'ell' needs the lp_gain kernel, which is the next "
-            "slice of the port (ROADMAP.md, Queue 1, 'lp_gain slice')")
-    raise ValueError(f"unknown refine backend {backend!r}")
+def resolve_backend(backend: str, device) -> str:
+    """``"auto"`` is ``"ell"`` on a CUDA device, where the kernels are
+    live, and ``"xla"`` on the CPU; ``"ell"`` and ``"xla"`` stand."""
+    if backend == "auto":
+        return "ell" if torch.device(device).type == "cuda" else "xla"
+    if backend not in ("ell", "xla"):
+        raise ValueError(f"unknown refine backend {backend!r}")
+    return backend
 
 
 def connectivity(g: Graph, part: torch.Tensor, k: int) -> torch.Tensor:
@@ -83,6 +97,25 @@ def connectivity(g: Graph, part: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.zeros(R * N * k + _TRASH, dtype=F32, device=g.device)
     out.index_add_(0, flat.reshape(-1), w.reshape(-1))
     return out[: R * N * k].view(R, N, k)
+
+
+def _make_conn_of(g: Graph, k: int, backend: str, ell_deg: int | None):
+    """Per-round connectivity for the resolved backend: ``(conn_of,
+    overflow)``, with ``conn_of(parts [R, N]) -> [R, N, k]``.
+
+    ``"ell"`` builds the padded [N, DEG] adjacency once per call and reads
+    only ``conn`` from ``kernels.ops.lp_gain`` (best and gain are recomputed
+    under the caller's capacity mask). Rows flagged in ``overflow`` carry
+    truncated connectivity; the caller chooses the policy. ``ell_deg`` is
+    the degree cap (``default_ell_deg(N, M)`` of the padded shapes when
+    None).
+    """
+    if backend != "ell":
+        return (lambda parts: connectivity(g, parts, k)), torch.zeros(
+            g.N, dtype=torch.bool, device=g.device)
+    deg = ell_deg if ell_deg is not None else default_ell_deg(g.N, g.M)
+    adj, adw, overflow = ell_adjacency(g, deg)
+    return (lambda parts: kops.lp_gain(adj, adw, parts, k)[0]), overflow
 
 
 def _lane_block_weights(w: torch.Tensor, part: torch.Tensor, k: int) -> torch.Tensor:
@@ -131,17 +164,71 @@ def _admit_by_argsort(cand, best, gbest, vw, cap, k: int) -> torch.Tensor:
     return torch.zeros_like(cand).scatter_(1, order, ok_s)
 
 
+def _admit_by_threshold(cand, best, gbest, vw, cap, k: int, tiebreak,
+                        iters: int = _THRESHOLD_ITERS) -> torch.Tensor:
+    """Per-block gain-threshold admission (the ell backend), per row of the
+    [R, N] inputs; ``cap`` is [R, k], ``tiebreak`` [R, N] in [0, 1).
+
+    For each target block b, bisect the smallest threshold t_b such that
+    the weight of candidates with ``gbest >= t_b`` targeting b fits in
+    ``cap[b]``, and admit exactly those. The invariant ``inflow(hi) <= cap``
+    holds throughout, so the admitted set respects capacity. Each gain is
+    raised by a relative ``_TIE_JITTER * tiebreak`` so that an equal-gain
+    group is admitted in part (in hash order), not all or nothing.
+
+    The inflow sums are ``index_add_`` into [R, k]. Entries that are not
+    admitted at a threshold go, with their weight, to spare slots past the
+    end that are cut off: each slot's sum has the same addends in the same
+    order as a masked sum, and on the card the zeros of a masked sum do
+    not pile atomics onto one block's slot. Non-candidates carry a gain of
+    -inf, so no threshold (all are >= 0) admits them.
+    """
+    R, N = cand.shape
+    dev = cand.device
+    gbest = gbest * (1.0 + _TIE_JITTER * tiebreak)
+    safe_best = torch.where(cand, best, 0).long()
+    gcand = torch.where(cand, gbest, float("-inf"))
+    w_cand = torch.where(cand, vw, 0.0).reshape(-1)
+    cap = cap.clamp(min=0.0)
+    flat = torch.arange(R, device=dev)[:, None] * k + safe_best
+    trash = R * k + torch.arange(N, device=dev) % _TRASH
+    out = torch.empty(R * k + _TRASH, dtype=F32, device=dev)
+
+    def inflow(t):
+        idx = torch.where(gcand >= t.gather(1, safe_best), flat, trash)
+        out.zero_().index_add_(0, idx.reshape(-1), w_cand)
+        return out[: R * k].view(R, k)
+
+    hi0 = torch.where(cand, gbest, 0.0).max(dim=1).values + 1.0
+    lo = torch.zeros(R, k, dtype=F32, device=dev)
+    hi = hi0[:, None].expand(R, k).contiguous()
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        ok = inflow(mid) <= cap
+        lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
+    t = torch.where(inflow(torch.zeros_like(lo)) <= cap, 0.0, hi)
+    return gcand >= t.gather(1, safe_best)
+
+
 def lp_refine(g: Graph, part: torch.Tensor, k: int, Lmax: torch.Tensor,
-              rounds: int = 4, salt=0, backend: str = "auto") -> torch.Tensor:
+              rounds: int = 4, salt=0, backend: str = "auto",
+              ell_deg: int | None = None) -> torch.Tensor:
     """Gain-positive, capacity-respecting label propagation refinement.
-    ``part`` is one [N] labelling, or [R, N] with one salt per row."""
-    resolve_backend(backend)
+    ``part`` is one [N] labelling, or [R, N] with one salt per row.
+
+    Under ``"ell"``, rows of degree above the cap are frozen: a truncated
+    gain estimate could otherwise admit a move that worsens the cut (their
+    neighbours still see them through their own rows)."""
+    backend = resolve_backend(backend, g.device)
     parts, salts = _batched(part, salt)
     vmask = vertex_mask(g)
     h = _vhashes(g.N, salts, g.device)
-    movable = vmask   # no ELL rows here, so no truncated row to freeze
+    conn_of, overflow = _make_conn_of(g, k, backend, ell_deg)
+    movable = vmask & ~overflow
+    if backend == "ell":
+        tiebreak = (h & 0xFFFF).to(F32) / float(1 << 16)
     for r in range(rounds):
-        conn = connectivity(g, parts, k)
+        conn = conn_of(parts)
         W = batched_block_weights(g, parts, k)
         gain = conn - _pick(conn, parts)[..., None]
         own = torch.nn.functional.one_hot(parts.long(), k).bool()
@@ -151,21 +238,28 @@ def lp_refine(g: Graph, part: torch.Tensor, k: int, Lmax: torch.Tensor,
         gbest = cand_gain.max(dim=-1).values
         color = ((h + r) & 1) == 0
         cand = movable & (gbest > 0.0) & color
-        accept = _admit_by_argsort(cand, best, gbest, g.vwgt, Lmax - W, k)
+        if backend == "ell":
+            accept = _admit_by_threshold(cand, best, gbest, g.vwgt, Lmax - W, k, tiebreak)
+        else:
+            accept = _admit_by_argsort(cand, best, gbest, g.vwgt, Lmax - W, k)
         parts = torch.where(accept, best, parts)
     return parts if part.dim() == 2 else parts[0]
 
 
 def rebalance(g: Graph, part: torch.Tensor, k: int, Lmax: torch.Tensor,
-              rounds: int = 8, salt=1, backend: str = "auto") -> torch.Tensor:
+              rounds: int = 8, salt=1, backend: str = "auto",
+              ell_deg: int | None = None) -> torch.Tensor:
     """Force epsilon-balance: drain over-capacity blocks via min-loss moves
-    (``salt`` is unused, as in the reference's xla backend). ``part`` is one
-    [N] labelling or [R, N]."""
-    resolve_backend(backend)
+    (``salt`` is unused, as in the reference). ``part`` is one [N]
+    labelling or [R, N]. Under ``"ell"`` rows over the degree cap stay
+    movable on truncated connectivity: feasibility rests on the exact
+    weight bookkeeping, and only their min-loss order is approximate."""
+    backend = resolve_backend(backend, g.device)
     parts = part if part.dim() == 2 else part[None]
     vmask = vertex_mask(g)
+    conn_of, _ = _make_conn_of(g, k, backend, ell_deg)
     for _ in range(rounds):
-        conn = connectivity(g, parts, k)
+        conn = conn_of(parts)
         W = batched_block_weights(g, parts, k)
         overflow_w = (W - Lmax).clamp(min=0.0)
         loss = _pick(conn, parts)[..., None] - conn

@@ -41,7 +41,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else (chip_smoke.py resets and reads them).
 LAUNCHES: dict[str, int] = {"gather_rows": 0, "hem_propose": 0,
-                            "contract_edges": 0, "mapcost": 0}
+                            "contract_edges": 0, "mapcost": 0, "lp_gain": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,16 +54,20 @@ _SIGNATURES = {
     "contract_edges_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (rows, cols, ewgt, pe, g_below, dvec, partial, M, N, l, blocks, stream)
     "mapcost_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (adj, adw, part, conn, best, gain, N, DEG, k, R, stream)
+    "lp_gain_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()   # the queue strategy launches from several threads
 BUILD_SECONDS: float | None = None
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _COUNT_LOCK:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
 
 
 def _nvcc() -> str:
@@ -142,7 +146,8 @@ def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {fn_name} failed to launch: cudaError {err}")
-    LAUNCHES[kernel] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

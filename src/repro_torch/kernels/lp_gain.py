@@ -1,0 +1,54 @@
+"""CUDA kernel for label-propagation gains: ``csrc/lp_gain.cu``.
+
+``lp_gain_cuda`` replaces the TPU kernel
+``repro/kernels/lp_gain.py:lp_gain_pallas`` and computes, in one launch for
+all R restarts, what its body computes: per vertex the connectivity to each
+block, the best other block and its gain. Each row's ELL ids and weights are
+read once for all restarts, and every sum runs in slot order, so the result
+is bitwise the plain version ``kernels/ref.py:lp_gain_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+MAX_DEG = 64   # one warp per row, two slots per lane
+MAX_K = 64     # two blocks per lane
+
+
+def lp_gain_cuda(adj, adw, part, k: int):
+    """``(conn [R, N, k] f32, best [R, N] i32, gain [R, N] f32)`` for the
+    ELL adjacency ``adj``/``adw`` ``[N, DEG]`` and labels ``part`` ``[R, N]``
+    (or ``[N]``, giving outputs without the ``R`` axis).
+
+    Padding slots (``adj >= N``) are skipped, as the TPU kernel's body does.
+    The JAX package's plain version instead counts them in block 0 with
+    their weight; the two agree because ``ell_adjacency`` writes weight 0 on
+    every padding slot.
+    """
+    _build.require_cuda("lp_gain", adj, adw, part)
+    _build.require_dtype("lp_gain", adj, torch.int32)
+    _build.require_dtype("lp_gain", adw, torch.float32)
+    _build.require_dtype("lp_gain", part, torch.int32)
+    if adj.dim() != 2 or adw.shape != adj.shape:
+        raise ValueError("lp_gain: adj and adw must be [N, DEG] of one shape")
+    N, DEG = adj.shape
+    if part.dim() not in (1, 2) or part.shape[-1] != N:
+        raise ValueError(f"lp_gain: part must be [N] or [R, N] with N = {N}")
+    if not 1 <= DEG <= MAX_DEG:
+        raise ValueError(f"lp_gain: DEG must be in [1, {MAX_DEG}], got {DEG}")
+    if not 2 <= k <= MAX_K:
+        raise ValueError(f"lp_gain: k must be in [2, {MAX_K}], got {k}")
+    parts = part[None] if part.dim() == 1 else part
+    R = parts.shape[0]
+    conn = torch.empty(R, N, k, dtype=torch.float32, device=adj.device)
+    best = torch.empty(R, N, dtype=torch.int32, device=adj.device)
+    gain = torch.empty(R, N, dtype=torch.float32, device=adj.device)
+    if N and R:
+        _build.launch("lp_gain", "lp_gain_f32", adj.device, adj.data_ptr(),
+                      adw.data_ptr(), parts.data_ptr(), conn.data_ptr(),
+                      best.data_ptr(), gain.data_ptr(), N, DEG, k, R)
+    if part.dim() == 1:
+        return conn[0], best[0], gain[0]
+    return conn, best, gain

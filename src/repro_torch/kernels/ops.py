@@ -11,6 +11,7 @@ import torch
 
 from . import ref
 from .coarsen_kernels import contract_edges_cuda, hem_propose_cuda
+from .lp_gain import lp_gain_cuda
 from .mapcost import mapcost_cuda
 from .split import gather_rows_cuda
 
@@ -49,3 +50,11 @@ def contract_edges(cand, candw):
     if _on_cuda(cand):
         return contract_edges_cuda(cand, candw, cand.shape[0])
     return ref.contract_edges_ref(cand, candw, cand.shape[0])
+
+
+def lp_gain(adj, adw, part, k: int):
+    """Per-vertex (conn, best, gain) over the [N, DEG] ELL adjacency, for
+    labels ``part`` [N] or [R, N] (the restarts of a partition call)."""
+    if _on_cuda(adj):
+        return lp_gain_cuda(adj, adw, part, k)
+    return ref.lp_gain_ref(adj, adw, part, k)

@@ -116,3 +116,62 @@ def merge_dedup_rows(cand, candw, sent: int):
 def contract_edges_ref(cand, candw, sent: int):
     """Plain version of the contract_edges kernel."""
     return merge_dedup_rows(cand, candw, sent)
+
+
+def lp_gain_ref(adj, adw, part, k: int):
+    """Per-vertex block connectivity, best other block and its gain.
+
+    ``adj``/``adw`` are the padded ELL adjacency ``[N, DEG]`` (neighbour id
+    ``>= N`` = padding), ``part`` the block of each vertex, ``[N]`` or
+    ``[R, N]`` (one row per restart). Returns ``(conn [R, N, k], best
+    [R, N] i32, gain [R, N])``, without the ``R`` axis for an ``[N]``
+    ``part``. ``conn[r, u, b]`` sums ``adw[u, j]`` over the slots whose
+    neighbour is in block ``b``, in slot order ``j = 0 .. DEG-1`` (the
+    kernel's order); padding slots are skipped, as the TPU kernel's body
+    skips them. ``best`` is the first block of largest connectivity other
+    than the vertex's own, ``gain`` that connectivity minus the own
+    block's.
+    """
+    parts = part[None] if part.dim() == 1 else part
+    R = parts.shape[0]
+    N, DEG = adj.shape
+    nbr = torch.where(adj < N, parts[:, adj.clamp(0, N - 1)],
+                      torch.full_like(adj, k)).long()          # [R, N, DEG], pad -> k
+    w = adw.expand(R, N, DEG)
+    conn = torch.zeros(R, N, k + 1, dtype=adw.dtype, device=adw.device)
+    for j in range(DEG):
+        conn.scatter_add_(2, nbr[..., j:j + 1], w[..., j:j + 1])
+    conn = conn[..., :k].contiguous()
+    own = torch.nn.functional.one_hot(parts.long(), k).bool()
+    cur = conn.gather(2, parts.long()[..., None])[..., 0]
+    masked = torch.where(own, torch.full_like(conn, float("-inf")), conn)
+    best = torch.argmax(masked, dim=-1).to(torch.int32)
+    gain = masked.max(dim=-1).values - cur
+    if part.dim() == 1:
+        return conn[0], best[0], gain[0]
+    return conn, best, gain
+
+
+def csr_to_ell(rows, cols, ewgt, N: int, DEG: int):
+    """Directed CSR edge arrays -> padded ELL ``(adj [N, DEG], adw [N, DEG])``.
+
+    Edges beyond DEG per row are dropped (callers choose DEG >= the
+    largest degree); padding slots hold neighbour id N and weight 0.
+    Edges keep their order within a row (stable sort by row).
+    """
+    dev = rows.device
+    order = torch.argsort(rows, stable=True)
+    r, c, w = rows[order], cols[order], ewgt[order]
+    M = r.shape[0]
+    rc = r.clamp(0, N - 1).long()
+    counts = torch.zeros(N, dtype=torch.int64, device=dev).index_add_(
+        0, rc, torch.ones(M, dtype=torch.int64, device=dev))
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(M, device=dev) - starts[rc]
+    valid = (pos < DEG) & (r < N)
+    slot = torch.where(valid, rc * DEG + pos, N * DEG)   # dropped -> trash slot
+    adj = torch.full((N * DEG + 1,), N, dtype=torch.int32, device=dev)
+    adj[slot] = c.to(torch.int32)
+    adw = torch.zeros(N * DEG + 1, dtype=w.dtype, device=dev)
+    adw[slot] = torch.where(valid, w, torch.zeros((), dtype=w.dtype, device=dev))
+    return adj[:-1].view(N, DEG), adw[:-1].view(N, DEG)

@@ -16,6 +16,7 @@ from repro_torch.core.coarsen import _edge_jitter, contract_candidates, hem_matc
 from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose_cuda
+from repro_torch.kernels.lp_gain import lp_gain_cuda
 from repro_torch.kernels.mapcost import mapcost_cuda
 from repro_torch.kernels.split import gather_rows_cuda
 
@@ -94,13 +95,57 @@ def test_wrappers_count_launches_and_reject_cpu(cuda, ell):
         gather_rows_cuda(g.ewgt.cpu(), adj[:2].contiguous())
 
 
+@pytest.mark.parametrize("DEG,k,R", [(8, 2, 1), (24, 6, 2), (64, 64, 2), (64, 3, 4), (1, 64, 1)])
+@pytest.mark.parametrize("weights", ["integer", "float"])
+def test_lp_gain_bitwise(cuda, DEG, k, R, weights):
+    """The kernel sums in slot order, as the plain version does: bitwise on
+    integer and on float weights."""
+    gen = torch.Generator(device="cpu").manual_seed(DEG * k + R)
+    N = 3001
+    adj = torch.randint(0, N + 1, (N, DEG), generator=gen, dtype=torch.int32)
+    w = torch.randint(1, 9, (N, DEG), generator=gen).float()
+    if weights == "float":
+        w = w * torch.rand((N, DEG), generator=gen)
+    adw = torch.where(adj < N, w, 0.0)
+    part = torch.randint(0, k, (R, N), generator=gen, dtype=torch.int32)
+    args = (adj.to(cuda), adw.to(cuda), part.to(cuda))
+    got = lp_gain_cuda(*args, k)
+    want = ref.lp_gain_ref(*args, k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    single = lp_gain_cuda(args[0], args[1], args[2][0].contiguous(), k)
+    for a, b in zip(single, got):
+        assert torch.equal(a, b[0])
+
+
+def test_lp_gain_rejects_bad_shapes(cuda, ell):
+    _, adj, adw = ell
+    part = torch.zeros(adj.shape[0], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        lp_gain_cuda(adj, adw, part, 1)            # k < 2
+    with pytest.raises(ValueError):
+        lp_gain_cuda(adj, adw, part, 65)           # k > 64
+    with pytest.raises(ValueError):
+        lp_gain_cuda(adj, adw, part.cpu(), 4)      # part on another device
+
+
+@pytest.mark.parametrize("backend", ["ell", "xla"])
 @pytest.mark.parametrize("gen", ["grid", "rgg"])
-def test_shared_map_card_equals_cpu(cuda, gen):
+def test_shared_map_card_equals_cpu(cuda, gen, backend):
+    """The backend pinned on both sides: "auto" is "ell" on the card and
+    "xla" on the CPU."""
     g = G.gen_grid(24, device="cpu") if gen == "grid" else G.gen_rgg(1500, seed=2, device="cpu")
     h = Hierarchy((4, 2), (1.0, 10.0))
     _build.reset_launches()
-    on_card = shared_map(g, h, SharedMapConfig(), device=cuda)
-    assert all(v > 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
-    on_cpu = shared_map(g, h, SharedMapConfig(), device="cpu")
+    on_card = shared_map(g, h, SharedMapConfig(backend=backend), device=cuda)
+    used = {k for k, v in _build.LAUNCHES.items() if v > 0}
+    assert used == set(_build.LAUNCHES) - ({"lp_gain"} if backend == "xla" else set())
+    on_cpu = shared_map(g, h, SharedMapConfig(backend=backend), device="cpu")
     assert np.array_equal(on_card.pe_of, on_cpu.pe_of)
     assert on_card.J == pytest.approx(on_cpu.J, rel=1e-6)
+
+
+def test_auto_is_ell_on_the_card(cuda):
+    g = G.gen_grid(16, device="cpu")
+    res = shared_map(g, Hierarchy((2, 2), (1.0, 10.0)), SharedMapConfig(), device=cuda)
+    assert res.stats["backend"] == "ell"

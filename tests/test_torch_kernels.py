@@ -21,6 +21,7 @@ from repro.kernels import ref as jref
 from repro_torch.core.coarsen import _edge_jitter
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose_cuda
+from repro_torch.kernels.lp_gain import lp_gain_cuda
 from repro_torch.kernels.mapcost import mapcost_cuda
 from repro_torch.kernels.split import gather_rows_cuda
 
@@ -156,6 +157,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         contract_edges_cuda(x[None], f[None], 1)
     with pytest.raises(ValueError):
         mapcost_cuda(x, x, f, x, x[:1], f[:1])
+    with pytest.raises(ValueError):
+        lp_gain_cuda(x[None], f[None], x[:1], 2)
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -131,8 +131,11 @@ def test_num_levels_matches():
 
 
 def test_ell_backend_is_the_next_slice():
-    assert TR.resolve_backend("auto") == "xla"
-    with pytest.raises(NotImplementedError, match="lp_gain"):
-        TR.resolve_backend("ell")
+    """The ``ell`` backend is ported: ``auto`` resolves to it on the card,
+    where the kernels are live, and to ``xla`` on the CPU."""
+    assert TR.resolve_backend("auto", "cpu") == "xla"
+    assert TR.resolve_backend("auto", torch.device("cuda")) == "ell"
+    assert TR.resolve_backend("ell", "cpu") == "ell"
+    assert TR.resolve_backend("xla", torch.device("cuda")) == "xla"
     with pytest.raises(ValueError):
-        TR.resolve_backend("bogus")
+        TR.resolve_backend("bogus", "cpu")
