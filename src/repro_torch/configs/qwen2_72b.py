@@ -1,0 +1,18 @@
+"""qwen2-72b [dense] — GQA kv=8, QKV bias. [arXiv:2407.10671; hf]"""
+from repro_torch.models.config import ModelConfig
+
+
+def make_config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-72b", family="dense",
+        num_layers=80, d_model=8192, num_heads=64, num_kv_heads=8,
+        d_ff=29568, vocab_size=152064, qkv_bias=True,
+    )
+
+
+def make_smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen2-smoke", family="dense",
+        num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+        d_ff=160, vocab_size=256, qkv_bias=True,
+    )

@@ -34,14 +34,16 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # -fmad=false: nvcc contracts no a*b+c into an FMA on its own; the one FMA
 # the bitwise contract needs (hem_propose's score) is written out with
-# __fmaf_rn, the way XLA fuses it in the reference.
+# __fmaf_rn, the way XLA fuses it in the reference. The flash-attention
+# kernel writes its multiply-adds as fmaf for the same reason.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-fmad=false"]
 
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else (chip_smoke.py resets and reads them).
 LAUNCHES: dict[str, int] = {"gather_rows": 0, "hem_propose": 0,
-                            "contract_edges": 0, "mapcost": 0, "lp_gain": 0}
+                            "contract_edges": 0, "mapcost": 0, "lp_gain": 0,
+                            "flash_attention": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +58,9 @@ _SIGNATURES = {
     "mapcost_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (adj, adw, part, conn, best, gain, N, DEG, k, R, stream)
     "lp_gain_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (q, k, v, o, BH, S, D, scale, causal, window, stream)
+    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

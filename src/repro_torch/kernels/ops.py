@@ -11,6 +11,7 @@ import torch
 
 from . import ref
 from .coarsen_kernels import contract_edges_cuda, hem_propose_cuda
+from .flashattn import flash_attention_cuda
 from .lp_gain import lp_gain_cuda
 from .mapcost import mapcost_cuda
 from .split import gather_rows_cuda
@@ -58,3 +59,24 @@ def lp_gain(adj, adw, part, k: int):
     if _on_cuda(adj):
         return lp_gain_cuda(adj, adw, part, k)
     return ref.lp_gain_ref(adj, adw, part, k)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Tiled-softmax SDPA. q [B, S, H, D], k/v [B, S, Hkv, D] -> [B, S, H, D].
+
+    GQA is expanded here as the reference's ``jnp.repeat``: query head h
+    reads KV head h // (H // Hkv). Heads are flattened to [B*H, S, D].
+    """
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(B * H, S, D).contiguous()
+    if _on_cuda(q):
+        o = flash_attention_cuda(flat(q), flat(k), flat(v), causal, window)
+    else:
+        o = ref.flash_ref(flat(q), flat(k), flat(v), causal, window)
+    return o.reshape(B, H, S, D).transpose(1, 2)

@@ -175,3 +175,24 @@ def csr_to_ell(rows, cols, ewgt, N: int, DEG: int):
     adw = torch.zeros(N * DEG + 1, dtype=w.dtype, device=dev)
     adw[slot] = torch.where(valid, w, torch.zeros((), dtype=w.dtype, device=dev))
     return adj[:-1].view(N, DEG), adw[:-1].view(N, DEG)
+
+
+def flash_ref(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Plain SDPA for the flash kernel. q/k/v [BH, S, D] -> [BH, S, D].
+
+    Computes in f32 and returns the input dtype, like the reference's
+    ``flash_ref``; masked logits are -1e30, so a kept entry always wins.
+    """
+    S = q.shape[1]
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= cols <= rows
+    if window > 0:
+        mask &= rows - cols < window
+    s = torch.where(mask[None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

@@ -1,0 +1,137 @@
+"""Shared building blocks: norms, RoPE, MLPs, embeddings, init helpers.
+
+The port of ``repro/models/layers.py``. Parameters keep the reference's
+names and layouts: weight matrices are ``[in, out]`` and are applied as
+``x @ w``; a group of parameters is an ``nn.ParameterDict`` so the
+functions below index it as the reference indexes its dicts. Parameters
+are f32 masters (``PDTYPE``) that never require a gradient (the port only
+serves); every function casts them to the dtype of ``x``, as the reference
+does.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import ModelConfig
+
+PDTYPE = torch.float32    # parameter dtype (master)
+CDTYPE = torch.bfloat16   # compute dtype
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dense_init(generator: torch.Generator | None, shape, scale: float | None = None,
+               device=None) -> nn.Parameter:
+    """Normal(0, scale) with scale 1/sqrt(fan_in) by default, drawn from
+    ``generator`` on its device; ``generator=None`` leaves the tensor
+    uninitialised on ``device`` (for loading converted weights)."""
+    if generator is None:
+        return param(torch.empty(shape, dtype=PDTYPE, device=device))
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    s = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    return param(torch.randn(shape, generator=generator, dtype=PDTYPE,
+                             device=generator.device) * s)
+
+
+def full_param(shape, value: float, generator, device) -> nn.Parameter:
+    dev = generator.device if generator is not None else device
+    return param(torch.full(shape, value, dtype=PDTYPE, device=dev))
+
+
+def rmsnorm(x, w, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * (1.0 + w)).to(dt)
+
+
+def layernorm(x, w, b, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * w + b).to(dt)
+
+
+def norm_params(cfg: ModelConfig, generator=None, device=None) -> nn.ParameterDict:
+    if cfg.norm == "rmsnorm":
+        return nn.ParameterDict({"w": full_param((cfg.d_model,), 0.0, generator, device)})
+    return nn.ParameterDict({"w": full_param((cfg.d_model,), 1.0, generator, device),
+                             "b": full_param((cfg.d_model,), 0.0, generator, device)})
+
+
+def apply_norm(cfg: ModelConfig, p, x):
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p["w"])
+    return layernorm(x, p["w"], p["b"])
+
+
+def rope_angles(positions, head_dim: int, theta: float):
+    """positions [*] -> (cos, sin) of shape [*, head_dim/2], in f32."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x [..., S, H, Dh]; cos/sin [..., S, Dh/2] (broadcast over heads).
+
+    A bf16 ``x`` times f32 angles promotes to f32 here, as in JAX; the
+    result is cast back to the dtype of ``x``."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def mlp_params(cfg: ModelConfig, generator=None, device=None,
+               d_ff: int | None = None) -> nn.ParameterDict:
+    D = cfg.d_model
+    Fd = d_ff if d_ff is not None else cfg.d_ff
+    if cfg.act == "silu":
+        return nn.ParameterDict({
+            "w_gate": dense_init(generator, (D, Fd), device=device),
+            "w_up": dense_init(generator, (D, Fd), device=device),
+            "w_down": dense_init(generator, (Fd, D), device=device),
+        })
+    return nn.ParameterDict({
+        "w_up": dense_init(generator, (D, Fd), device=device),
+        "b_up": full_param((Fd,), 0.0, generator, device),
+        "w_down": dense_init(generator, (Fd, D), device=device),
+        "b_down": full_param((D,), 0.0, generator, device),
+    })
+
+
+def apply_mlp(cfg: ModelConfig, p, x):
+    if cfg.act == "silu":
+        h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
+        return h @ p["w_down"].to(x.dtype)
+    # jax.nn.gelu's default is the tanh approximation
+    h = F.gelu(x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype), approximate="tanh")
+    return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)
+
+
+def embed_params(cfg: ModelConfig, generator=None, device=None) -> nn.ParameterDict:
+    # 0.02 keeps tied-unembedding logits at O(1): std = sqrt(D) * 0.02
+    p = {"tok": dense_init(generator, (cfg.vocab_size, cfg.d_model), scale=0.02,
+                           device=device)}
+    if not cfg.tie_embeddings:
+        p["out"] = dense_init(generator, (cfg.d_model, cfg.vocab_size), device=device)
+    return nn.ParameterDict(p)
+
+
+def embed_tokens(p, tokens):
+    return p["tok"][tokens].to(CDTYPE)
+
+
+def unembed(cfg: ModelConfig, p, x):
+    w = p["tok"].T if cfg.tie_embeddings else p["out"]
+    return x @ w.to(x.dtype)

@@ -14,8 +14,9 @@ from repro_torch.core import graph as G
 from repro_torch.core.api import SharedMapConfig, shared_map
 from repro_torch.core.coarsen import _edge_jitter, contract_candidates, hem_match_ell
 from repro_torch.core.hierarchy import Hierarchy
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose_cuda
+from repro_torch.kernels.flashattn import flash_attention_cuda
 from repro_torch.kernels.lp_gain import lp_gain_cuda
 from repro_torch.kernels.mapcost import mapcost_cuda
 from repro_torch.kernels.split import gather_rows_cuda
@@ -139,7 +140,8 @@ def test_shared_map_card_equals_cpu(cuda, gen, backend):
     _build.reset_launches()
     on_card = shared_map(g, h, SharedMapConfig(backend=backend), device=cuda)
     used = {k for k, v in _build.LAUNCHES.items() if v > 0}
-    assert used == set(_build.LAUNCHES) - ({"lp_gain"} if backend == "xla" else set())
+    mapping = set(_build.LAUNCHES) - {"flash_attention"}   # the model path's kernel
+    assert used == mapping - ({"lp_gain"} if backend == "xla" else set())
     on_cpu = shared_map(g, h, SharedMapConfig(backend=backend), device="cpu")
     assert np.array_equal(on_card.pe_of, on_cpu.pe_of)
     assert on_card.J == pytest.approx(on_cpu.J, rel=1e-6)
@@ -149,3 +151,58 @@ def test_auto_is_ell_on_the_card(cuda):
     g = G.gen_grid(16, device="cpu")
     res = shared_map(g, Hierarchy((2, 2), (1.0, 10.0)), SharedMapConfig(), device=cuda)
     assert res.stats["backend"] == "ell"
+
+
+# bf16 outputs round to bf16 (an ulp of 0.5 is 2^-9) and its inputs multiply
+# exactly in f32 on both sides, so 0.06 (the reference's own bf16 flash
+# tolerance) is loose; f32 differs only in the order of the sums.
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 0.06}
+
+
+def _flash_qkv(cuda, bh, s, d, dtype, seed):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(bh, s, d, generator=gen).to(cuda, dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [12, 64, 128, 256])
+@pytest.mark.parametrize("S,causal,window", [
+    (300, True, 0),       # ragged S, causal
+    (129, False, 0),      # ragged S, one row past a tile, no mask
+    (300, True, 17),      # window below the tile size
+    (300, False, 64),     # window without causal
+    (1, True, 0),         # a single row
+])
+def test_flash_attention_matches_plain(cuda, dtype, D, S, causal, window):
+    q, k, v = _flash_qkv(cuda, 3, S, D, dtype, seed=D * 1000 + S + window)
+    got = flash_attention_cuda(q, k, v, causal, window)
+    want = ref.flash_ref(q, k, v, causal, window)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_ATOL[dtype], rtol=0)
+
+
+def test_flash_attention_long_window(cuda):
+    """A window of 4096 (mixtral's) over a longer sequence: the first
+    k-tiles of late rows lie wholly outside the band and are skipped."""
+    q, k, v = _flash_qkv(cuda, 2, 4700, 128, torch.bfloat16, seed=4096)
+    got = flash_attention_cuda(q, k, v, True, 4096)
+    want = ref.flash_ref(q, k, v, True, 4096)
+    torch.testing.assert_close(got.float(), want.float(), atol=0.06, rtol=0)
+
+
+def test_flash_attention_gqa_route_counts(cuda):
+    """ops.flash_attention expands GQA (head h reads KV head h // rep) and
+    launches the kernel once per call on the card."""
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    B, S, H, Hkv, D = 2, 200, 6, 2, 64
+    q = torch.randn(B, S, H, D, generator=gen).to(cuda)
+    k = torch.randn(B, S, Hkv, D, generator=gen).to(cuda)
+    v = torch.randn(B, S, Hkv, D, generator=gen).to(cuda)
+    before = _build.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q[0].contiguous(), k[0].half().contiguous(), v[0].contiguous())

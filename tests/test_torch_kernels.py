@@ -162,7 +162,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_port_imports_no_jax_and_no_repro():
-    code = ("import sys, repro_torch.core.api, repro_torch.kernels.ops; "
+    code = ("import sys, repro_torch.core.api, repro_torch.kernels.ops, "
+            "repro_torch.models.model, repro_torch.models.convert, "
+            "repro_torch.serve.engine, repro_torch.configs.registry; "
+            "[repro_torch.configs.registry.get_config(a) for a in "
+            "repro_torch.configs.registry.ARCHS]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ)
