@@ -75,7 +75,12 @@ ENGINE_B, ENGINE_P, ENGINE_STEPS, ENGINE_MAX_LEN = 4, 32, 64, 128
 # decode-vs-forward test allows the same at its smoke size
 # (tests/test_models.py:87).
 LOGITS_ATOL, LOGITS_RTOL = 0.15, 0.1
-FLASH_ATOL = {"bfloat16": 0.06, "float32": 2e-5}   # 0.06: the reference's bf16 test
+# flash against its plain version, as (rtol, atol). Both compute in f32 and
+# round the output once to the input type, so in bf16 they may differ by one
+# rounding step: rtol 2^-7 is one bf16 ulp of the value, and the atol only
+# covers f32 summation order near zero. In f32 the outputs of S = 300
+# standard-normal slices are of order 0.1, and 2e-5 is summation order.
+FLASH_TOL = {"bfloat16": (2.0**-7, 1e-4), "float32": (0.0, 2e-5)}
 
 
 def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -132,16 +137,14 @@ def _run_path(name, fn, expect, _build):
     return out, seconds, launches
 
 
-def _flash_pairs(S: int, D: int, causal: bool, window: int) -> int:
-    """(query, key) pairs in the tiles the flash kernel visits for one [S, D]
-    slice: 64-row q-tiles, k-tiles of 64 (32 where D > 64), tiles wholly
-    outside the causal / window band skipped."""
-    bq, bk = 64, (32 if D > 64 else 64)
+def _flash_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that the causal / window mask keeps in one [S, S]
+    slice: the work attention needs, whatever the kernel's tiling."""
     pairs = 0
-    for q0 in range(0, S, bq):
-        k_end = min(S, q0 + bq) if causal else S
-        k_beg = max(0, q0 - window + 1) // bk * bk if window > 0 else 0
-        pairs += min(bq, S - q0) * (k_end - k_beg)
+    for i in range(S):
+        hi = i + 1 if causal else S
+        lo = max(0, i - window + 1) if window > 0 else 0
+        pairs += hi - lo
     return pairs
 
 
@@ -314,14 +317,19 @@ def _serving_path(dev, check, _build) -> int:
             err = float((flash_attention_cuda(q, k, v, causal, window)
                          - ref.flash_ref(q, k, v, causal, window)).abs().max())
             print(f"flash_attention f32 BH=4 S=300 D={D} causal={causal} window={window}: "
-                  f"max abs err {err:.3g} (atol {FLASH_ATOL['float32']})", flush=True)
-            if not err <= FLASH_ATOL["float32"]:
+                  f"max abs err {err:.3g} (atol {FLASH_TOL['float32'][1]})", flush=True)
+            if not err <= FLASH_TOL["float32"][1]:
                 raise AssertionError("flash_attention disagrees with its plain version")
     q, k, v, causal, window = captured[0]
     BH, S, D = q.shape
     print(f"flash_attention at the prefill's layer-0 q/k/v: BH={BH} S={S} D={D} "
           f"{q.dtype} causal={causal} window={window}", flush=True)
-    pairs = _flash_pairs(S, D, causal, window)
+    pairs = _flash_pairs(S, causal, window)
+    med = float(ref.flash_ref(q, k, v, causal, window).float().abs().median())
+    rtol, atol = FLASH_TOL["bfloat16"]
+    print(f"flash_attention tolerance: rtol {rtol:.4g} atol {atol:.4g}, median |o| "
+          f"{med:.4g} (allowed there {atol + rtol * med:.3g}); {pairs} (query, key) "
+          f"pairs per slice kept by the mask", flush=True)
     B_, H_ = PREFILL_B, BH // PREFILL_B
     check("flash_attention", lambda a, b, c: flash_attention_cuda(a, b, c, causal, window),
           lambda a, b, c: ref.flash_ref(a, b, c, causal, window), (q, k, v), False,
@@ -329,7 +337,7 @@ def _serving_path(dev, check, _build) -> int:
           library=lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
               a.view(B_, H_, S, D), b.view(B_, H_, S, D), c.view(B_, H_, S, D),
               is_causal=True),
-          atol=FLASH_ATOL["bfloat16"], ops_per_s=BF16_OPS_PER_S)
+          rtol=rtol, atol=atol, ops_per_s=BF16_OPS_PER_S)
     return ln_f["flash_attention"]
 
 
@@ -411,7 +419,7 @@ def main() -> int:
         want = plain(*args)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        err = 0.0
+        err, used = 0.0, 0.0   # used: the worst |a - b| / (atol + rtol |b|)
         for a, b in zip(got, want):
             if exact:
                 ok = torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -420,7 +428,11 @@ def main() -> int:
             if not ok:
                 raise AssertionError(f"{name}: kernel disagrees with its plain version")
             if a.is_floating_point():
-                err = max(err, float((a.double() - b.double()).abs().max()))
+                d = (a.double() - b.double()).abs()
+                err = max(err, float(d.max()))
+                if not exact:
+                    r = d / (atol + rtol * b.double().abs())
+                    used = max(used, float(torch.where(d == 0, 0.0, r).max()))
         ms = _time_ms(lambda: kernel(*args))
         plain_ms = _time_ms(lambda: plain(*args), reps=5, warmup=1)
         lib_ms = _time_ms(lambda: library(*args)) if library else None
@@ -430,7 +442,8 @@ def main() -> int:
                      "replaces": TPU_KERNELS[name], "launches": None,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
-        agree = "bitwise" if exact else f"rtol {rtol} atol {atol}"
+        agree = ("bitwise" if exact else
+                 f"rtol {rtol:.4g} atol {atol:.4g}, worst {used:.3g} of the allowed error")
         print(f"kernel {name}: agrees ({agree}, max_abs_err {err:.3g}) "
               f"ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
               f"({bound_by}) library_ms {lib_ms}", flush=True)

@@ -2,9 +2,12 @@
 
 The reference's ``ShardCtx`` (``repro/models/sharding.py``) carries a mesh,
 its axis names and a set of knobs. On one card the mesh has one device, so
-the port keeps the knobs that change what runs there and makes ``constrain``
-the identity. Sharding over several devices (a mesh, ``attn_seq_shard``)
-is ROADMAP Queue 1 item 14 and raises here.
+the port keeps the knobs that change what its dense prefill and decode run
+there and makes ``constrain`` the identity. The reference's ``remat`` (a
+training knob) and ``slstm_chunk`` (xLSTM) come with the slices that port
+training and xLSTM (ROADMAP Queue 1 item 11). Sharding over several
+devices (a mesh, ``attn_seq_shard``) is ROADMAP Queue 1 item 14 and raises
+here.
 """
 from __future__ import annotations
 
@@ -16,11 +19,8 @@ class ShardCtx:
     use_flash: bool = False        # attention through the flash kernel
     # (kernels/flashattn.py): no [B, H, S, S] logits in device memory
     bf16_attn: bool = False        # QK^T and RoPE in the compute dtype
-    remat: str = "full"            # full | dots; a training knob, inert here
-    # (the port has no backward pass)
     cast_params_once: bool = False  # cast each block's f32 params to bf16
     # before it runs (the reference does it before the layer scan)
-    slstm_chunk: int = 1           # sLSTM timesteps per step (xLSTM family)
     attn_seq_shard: bool = False   # context parallelism: needs a mesh
     mesh: object = None
 
