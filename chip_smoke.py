@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` and prints the build time.
+   ``src/repro_torch/kernels/csrc`` and prints the build time and ptxas's
+   report (registers, shared memory, spills) for the flash kernels.
 2. Holds every kernel against its plain PyTorch version on the card, on
    inputs captured from the main path at its top-level shapes (``lp_gain``:
    from the root's partition call, both restarts), and times both (CUDA
@@ -32,8 +33,10 @@
    last prompt-step logits must agree with a flash prefill of the prompts.
    One flash prefill is profiled (device busy share, the kernel's share),
    and four engine steps (device ops per step).
-   The flash kernel is held against its plain version on the q/k/v of
-   layer 0 of that prefill and on small f32 shapes.
+   The flash kernel is held against its plain version (``flash_bshd_ref``)
+   on the q [B, S, H, D] and k/v [B, S, Hkv, D] of layer 0 of that prefill,
+   as the model hands them over, and on small shapes: f32, and bf16 at D
+   12, 64 and 256 with three query heads per KV head.
 8. Prints one JSON line with every kernel's numbers, then the contract's
    last line. Any failed check raises, and the script exits non-zero.
 
@@ -193,7 +196,7 @@ def _serving_path(dev, check, _build) -> int:
     captured = []
     orig = kops.flash_attention_cuda
 
-    def first_call(q, k, v, causal, window):   # layer 0's q/k/v, kept
+    def first_call(q, k, v, causal, window):   # layer 0's q/k/v, kept as handed over
         if not captured:
             captured.append((q.clone(), k.clone(), v.clone(), causal, window))
         return orig(q, k, v, causal, window)
@@ -308,36 +311,49 @@ def _serving_path(dev, check, _build) -> int:
     del prof, events, params
     torch.cuda.empty_cache()
 
-    # the flash kernel against its plain version: small f32 shapes, then the
-    # prefill's layer-0 q/k/v (timed; the row of the kernels line)
+    # the flash kernel against its plain version: small shapes (f32; bf16
+    # with three query heads per KV head), then the prefill's layer-0 q/k/v
+    # (timed; the row of the kernels line)
     gen = torch.Generator(device="cpu").manual_seed(1)
-    for D in (12, 64):
-        for causal, window in ((False, 0), (False, 64), (True, 64)):
-            q, k, v = (torch.randn(4, 300, D, generator=gen).to(dev) for _ in range(3))
-            err = float((flash_attention_cuda(q, k, v, causal, window)
-                         - ref.flash_ref(q, k, v, causal, window)).abs().max())
-            print(f"flash_attention f32 BH=4 S=300 D={D} causal={causal} window={window}: "
-                  f"max abs err {err:.3g} (atol {FLASH_TOL['float32'][1]})", flush=True)
-            if not err <= FLASH_TOL["float32"][1]:
+    small_cases = [("float32", D, 2, 2) for D in (12, 64)]
+    small_cases += [("bfloat16", D, 6, 2) for D in (12, 64, 256)]
+    for dtype, D, H, Hkv in small_cases:
+        rtol, atol = FLASH_TOL[dtype]
+        for causal, window in ((False, 0), (False, 64), (True, 64), (True, 0)):
+            q, k, v = (torch.randn(2, 300, h, D, generator=gen).to(dev, getattr(torch, dtype))
+                       for h in (H, Hkv, Hkv))
+            got = flash_attention_cuda(q, k, v, causal, window)
+            want = ref.flash_bshd_ref(q, k, v, causal, window)
+            err = float((got.float() - want.float()).abs().max())
+            print(f"flash_attention {dtype} B=2 S=300 H={H} Hkv={Hkv} D={D} causal={causal} "
+                  f"window={window}: max abs err {err:.3g} (rtol {rtol:.4g} atol {atol})",
+                  flush=True)
+            if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
                 raise AssertionError("flash_attention disagrees with its plain version")
     q, k, v, causal, window = captured[0]
-    BH, S, D = q.shape
-    print(f"flash_attention at the prefill's layer-0 q/k/v: BH={BH} S={S} D={D} "
-          f"{q.dtype} causal={causal} window={window}", flush=True)
+    B_, S, H_, D = q.shape
+    Hkv = k.shape[2]
+    print(f"flash_attention at the prefill's layer-0 q/k/v: q {list(q.shape)} k/v "
+          f"{list(k.shape)} {q.dtype} causal={causal} window={window}, read in place",
+          flush=True)
     pairs = _flash_pairs(S, causal, window)
-    med = float(ref.flash_ref(q, k, v, causal, window).float().abs().median())
+    med = float(ref.flash_bshd_ref(q, k, v, causal, window).float().abs().median())
     rtol, atol = FLASH_TOL["bfloat16"]
     print(f"flash_attention tolerance: rtol {rtol:.4g} atol {atol:.4g}, median |o| "
           f"{med:.4g} (allowed there {atol + rtol * med:.3g}); {pairs} (query, key) "
           f"pairs per slice kept by the mask", flush=True)
-    B_, H_ = PREFILL_B, BH // PREFILL_B
+    # the yardstick: SDPA on the expanded, contiguous [B, H, S, D] tensors,
+    # made here, outside the timed region
+    rep = H_ // Hkv
+    sdpa_in = tuple(x.repeat_interleave(n, dim=2).transpose(1, 2).contiguous()
+                    for x, n in ((q, 1), (k, rep), (v, rep)))
     check("flash_attention", lambda a, b, c: flash_attention_cuda(a, b, c, causal, window),
-          lambda a, b, c: ref.flash_ref(a, b, c, causal, window), (q, k, v), False,
-          4 * q.numel() * q.element_size(), 4 * BH * pairs * D,
+          lambda a, b, c: ref.flash_bshd_ref(a, b, c, causal, window), (q, k, v), False,
+          (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+          4 * B_ * H_ * pairs * D,
           library=lambda a, b, c: torch.nn.functional.scaled_dot_product_attention(
-              a.view(B_, H_, S, D), b.view(B_, H_, S, D), c.view(B_, H_, S, D),
-              is_causal=True),
-          rtol=rtol, atol=atol, ops_per_s=BF16_OPS_PER_S)
+              a, b, c, is_causal=True),
+          library_args=sdpa_in, rtol=rtol, atol=atol, ops_per_s=BF16_OPS_PER_S)
     return ln_f["flash_attention"]
 
 
@@ -378,6 +394,11 @@ def main() -> int:
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.BUILD_SECONDS:.1f} s)", flush=True)
+    for line in _build.ptxas_report("flash_attention.cu"):
+        print(f"ptxas flash_attention.cu: {line}", flush=True)
+    smem = {d: _build.library().flash_attention_bf16_smem(d) for d in (64, 128, 256)}
+    print(f"flash_kernel_wgmma dynamic shared memory per block, by D: {smem} B "
+          f"(ptxas counts only static shared memory)", flush=True)
 
     # ---- the main path's graph, at its top-level padded shapes ------------
     t0 = time.perf_counter()
@@ -414,7 +435,7 @@ def main() -> int:
     rows = []
 
     def check(name, kernel, plain, args, exact, nbytes, flops, library=None,
-              rtol=0.0, atol=0.0, ops_per_s=F32_OPS_PER_S):
+              library_args=None, rtol=0.0, atol=0.0, ops_per_s=F32_OPS_PER_S):
         got = kernel(*args)
         want = plain(*args)
         got = got if isinstance(got, tuple) else (got,)
@@ -435,7 +456,8 @@ def main() -> int:
                     used = max(used, float(torch.where(d == 0, 0.0, r).max()))
         ms = _time_ms(lambda: kernel(*args))
         plain_ms = _time_ms(lambda: plain(*args), reps=5, warmup=1)
-        lib_ms = _time_ms(lambda: library(*args)) if library else None
+        lib_args = args if library_args is None else library_args
+        lib_ms = _time_ms(lambda: library(*lib_args)) if library else None
         bound_ms, bound_by = _bound(nbytes, flops, ops_per_s)
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -36,8 +36,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # the bitwise contract needs (hem_propose's score) is written out with
 # __fmaf_rn, the way XLA fuses it in the reference. The flash-attention
 # kernel writes its multiply-adds as fmaf for the same reason.
+# -Xptxas=-v: each kernel's registers, shared memory and spills, kept in
+# the build log beside the library (``ptxas_report``).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-fmad=false"]
+              "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v"]
 
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else (chip_smoke.py resets and reads them).
@@ -58,9 +60,11 @@ _SIGNATURES = {
     "mapcost_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (adj, adw, part, conn, best, gain, N, DEG, k, R, stream)
     "lp_gain_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (q, k, v, o, BH, S, D, scale, causal, window, stream)
-    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
-    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    # (q, k, v, o, B, S, H, Hkv, D, scale, causal, window, stream)
+    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    # (D) -> dynamic shared memory bytes of one block
+    "flash_attention_bf16_smem": [_I],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -119,14 +123,30 @@ def build() -> Path:
         bad = [(s.name, log) for s, p, log in zip(srcs, procs, logs) if p.returncode]
         if bad:
             raise RuntimeError("nvcc failed:\n" + "\n".join(f"--- {n}\n{log}" for n, log in bad))
+        log_tmp = Path(tmp) / "build.log"
+        log_tmp.write_text("".join(f"--- {s.name}\n{log}" for s, log in zip(srcs, logs)))
         lib_tmp = Path(tmp) / out.name
         res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *map(str, objs),
                               "-o", str(lib_tmp)], capture_output=True, text=True)
         if res.returncode:
             raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
+        os.replace(log_tmp, out.with_suffix(".log"))
         os.replace(lib_tmp, out)  # atomic publish: concurrent builds agree
     BUILD_SECONDS = time.perf_counter() - t0
     return out
+
+
+def ptxas_report(source: str) -> list[str]:
+    """ptxas's lines for the kernels of ``csrc/<source>`` from the build log
+    of the current library (each entry, its registers, spills and shared
+    memory, and any warning); builds the library first if needed."""
+    lines, keep = [], False
+    for line in build().with_suffix(".log").read_text().splitlines():
+        if line.startswith("--- "):
+            keep = line[4:] == source
+        elif keep and any(w in line for w in ("Compiling entry", "spill", "Used", "arning")):
+            lines.append(line.strip())
+    return lines
 
 
 def library() -> ctypes.CDLL:

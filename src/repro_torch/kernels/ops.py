@@ -64,19 +64,10 @@ def lp_gain(adj, adw, part, k: int):
 def flash_attention(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
     """Tiled-softmax SDPA. q [B, S, H, D], k/v [B, S, Hkv, D] -> [B, S, H, D].
 
-    GQA is expanded here as the reference's ``jnp.repeat``: query head h
-    reads KV head h // (H // Hkv). Heads are flattened to [B*H, S, D].
+    Query head h reads KV head h // (H // Hkv), as the reference's
+    ``jnp.repeat`` expands them. On the card the kernel reads this layout in
+    place; the plain version expands and flattens the heads itself.
     """
-    B, S, H, D = q.shape
-    rep = H // k.shape[2]
-    if rep > 1:
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
-
-    def flat(x):
-        return x.transpose(1, 2).reshape(B * H, S, D).contiguous()
     if _on_cuda(q):
-        o = flash_attention_cuda(flat(q), flat(k), flat(v), causal, window)
-    else:
-        o = ref.flash_ref(flat(q), flat(k), flat(v), causal, window)
-    return o.reshape(B, H, S, D).transpose(1, 2)
+        return flash_attention_cuda(q, k, v, causal, window)
+    return ref.flash_bshd_ref(q, k, v, causal, window)

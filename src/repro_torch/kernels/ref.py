@@ -196,3 +196,20 @@ def flash_ref(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
     s = torch.where(mask[None], s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_bshd_ref(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Plain version of the flash kernel's interface: q [B, S, H, D] and
+    k/v [B, S, Hkv, D] -> o [B, S, H, D]. GQA is expanded as the
+    reference's ``jnp.repeat`` (query head h reads KV head h // rep), the
+    heads flattened to [B*H, S, D] for ``flash_ref``."""
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(B * H, S, D)
+    o = flash_ref(flat(q), flat(k), flat(v), causal, window)
+    return o.reshape(B, H, S, D).transpose(1, 2)

@@ -153,19 +153,29 @@ def test_auto_is_ell_on_the_card(cuda):
     assert res.stats["backend"] == "ell"
 
 
-# bf16 outputs round to bf16 (an ulp of 0.5 is 2^-9) and its inputs multiply
-# exactly in f32 on both sides, so 0.06 (the reference's own bf16 flash
-# tolerance) is loose; f32 differs only in the order of the sums.
-FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 0.06}
+# flash against its plain version, as (rtol, atol), the same as chip_smoke.py's
+# FLASH_TOL: both compute in f32 and round the output once to the input type,
+# so in bf16 they may differ by one rounding step (rtol 2^-7 is one bf16 ulp
+# of the value; atol covers f32 summation order near zero). f32 differs only
+# in the order of the sums.
+FLASH_TOL = {torch.float32: (0.0, 2e-5), torch.bfloat16: (2.0**-7, 1e-4)}
 
 
-def _flash_qkv(cuda, bh, s, d, dtype, seed):
+def _flash_qkv(cuda, B, S, H, Hkv, D, dtype, seed):
     gen = torch.Generator(device="cpu").manual_seed(seed)
-    return [torch.randn(bh, s, d, generator=gen).to(cuda, dtype) for _ in range(3)]
+    return [torch.randn(B, S, h, D, generator=gen).to(cuda, dtype) for h in (H, Hkv, Hkv)]
+
+
+def _assert_flash_close(got, want, dtype):
+    rtol, atol = FLASH_TOL[dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [12, 64, 128, 256])
+@pytest.mark.parametrize("Hkv", [6, 2], ids=["mha", "gqa3"])
 @pytest.mark.parametrize("S,causal,window", [
     (300, True, 0),       # ragged S, causal
     (129, False, 0),      # ragged S, one row past a tile, no mask
@@ -173,36 +183,34 @@ def _flash_qkv(cuda, bh, s, d, dtype, seed):
     (300, False, 64),     # window without causal
     (1, True, 0),         # a single row
 ])
-def test_flash_attention_matches_plain(cuda, dtype, D, S, causal, window):
-    q, k, v = _flash_qkv(cuda, 3, S, D, dtype, seed=D * 1000 + S + window)
+def test_flash_attention_matches_plain(cuda, dtype, D, Hkv, S, causal, window):
+    """The kernel reads q [B, S, H, D] and k/v [B, S, Hkv, D] in place."""
+    q, k, v = _flash_qkv(cuda, 2, S, 6, Hkv, D, dtype, seed=D * 1000 + S + window + Hkv)
     got = flash_attention_cuda(q, k, v, causal, window)
-    want = ref.flash_ref(q, k, v, causal, window)
-    assert got.dtype == dtype and got.shape == q.shape
-    assert torch.isfinite(got.float()).all()
-    torch.testing.assert_close(got.float(), want.float(), atol=FLASH_ATOL[dtype], rtol=0)
+    _assert_flash_close(got, ref.flash_bshd_ref(q, k, v, causal, window), dtype)
 
 
 def test_flash_attention_long_window(cuda):
     """A window of 4096 (mixtral's) over a longer sequence: the first
     k-tiles of late rows lie wholly outside the band and are skipped."""
-    q, k, v = _flash_qkv(cuda, 2, 4700, 128, torch.bfloat16, seed=4096)
+    q, k, v = _flash_qkv(cuda, 2, 4700, 3, 1, 128, torch.bfloat16, seed=4096)
     got = flash_attention_cuda(q, k, v, True, 4096)
-    want = ref.flash_ref(q, k, v, True, 4096)
-    torch.testing.assert_close(got.float(), want.float(), atol=0.06, rtol=0)
+    _assert_flash_close(got, ref.flash_bshd_ref(q, k, v, True, 4096), torch.bfloat16)
 
 
 def test_flash_attention_gqa_route_counts(cuda):
-    """ops.flash_attention expands GQA (head h reads KV head h // rep) and
-    launches the kernel once per call on the card."""
-    gen = torch.Generator(device="cpu").manual_seed(5)
+    """ops.flash_attention hands the model's layout to the kernel (one
+    launch per call, no copy) and matches the CPU's route; a dtype mismatch
+    and a strided view raise."""
     B, S, H, Hkv, D = 2, 200, 6, 2, 64
-    q = torch.randn(B, S, H, D, generator=gen).to(cuda)
-    k = torch.randn(B, S, Hkv, D, generator=gen).to(cuda)
-    v = torch.randn(B, S, Hkv, D, generator=gen).to(cuda)
+    q, k, v = _flash_qkv(cuda, B, S, H, Hkv, D, torch.float32, seed=5)
     before = _build.LAUNCHES["flash_attention"]
     got = ops.flash_attention(q, k, v, causal=True)
     assert _build.LAUNCHES["flash_attention"] == before + 1
     want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
     torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
     with pytest.raises(TypeError):
-        flash_attention_cuda(q[0].contiguous(), k[0].half().contiguous(), v[0].contiguous())
+        flash_attention_cuda(q, k.half(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert _build.LAUNCHES["flash_attention"] == before + 1

@@ -21,6 +21,7 @@ from repro.kernels import ref as jref
 from repro_torch.core.coarsen import _edge_jitter
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose_cuda
+from repro_torch.kernels.flashattn import flash_attention_cuda
 from repro_torch.kernels.lp_gain import lp_gain_cuda
 from repro_torch.kernels.mapcost import mapcost_cuda
 from repro_torch.kernels.split import gather_rows_cuda
@@ -159,6 +160,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         mapcost_cuda(x, x, f, x, x[:1], f[:1])
     with pytest.raises(ValueError):
         lp_gain_cuda(x[None], f[None], x[:1], 2)
+
+
+def test_flash_routes_cpu_to_plain_and_wrapper_refuses_cpu():
+    """On the CPU ``ops.flash_attention`` is ``ref.flash_bshd_ref`` on the
+    model's layout; the kernel's wrapper takes CUDA tensors only."""
+    rng = np.random.default_rng(0)
+    q = T(rng.standard_normal((2, 33, 6, 16)).astype(np.float32))
+    k, v = (T(rng.standard_normal((2, 33, 3, 16)).astype(np.float32)) for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=True, window=5)
+    assert got.shape == q.shape
+    assert torch.equal(got, ref.flash_bshd_ref(q, k, v, True, 5))
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, k, v)
 
 
 def test_port_imports_no_jax_and_no_repro():

@@ -125,6 +125,80 @@ def test_ops_flash_attention_gqa():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,causal,window", [(130, True, 0), (130, True, 24),
+                                             (77, False, 16)])
+def test_flash_bshd_ref_matches_reference_and_pallas(dtype, S, causal, window):
+    """The plain version of the kernel's interface (q [B, S, H, D], k/v
+    [B, S, Hkv, D], GQA read in place) against the JAX ``ops.flash_attention``
+    on its reference route and on the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(S + window)
+    B, H, Hkv, D = 2, 6, 2, 32
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, Hkv, D)).astype(np.float32) for _ in range(2))
+    jd = jnp.dtype(dtype)
+    got = ref.flash_bshd_ref(*(T(x).to(getattr(torch, dtype)) for x in (q, k, v)),
+                             causal, window)
+    assert got.shape == (B, S, H, D) and got.dtype == getattr(torch, dtype)
+    atol = F32_ATOL if dtype == "float32" else BF16_FLASH_ATOL
+    jq, jk, jv = (jnp.asarray(x, jd) for x in (q, k, v))
+    for use_pallas in (False, True):
+        want = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                    use_pallas=use_pallas)
+        np.testing.assert_allclose(_np(got), _np(want), atol=atol, rtol=0)
+
+
+def _flash_split_p(q, k, v, bk: int = 128):
+    """The bf16 kernel's arithmetic in plain torch, one [S, D] slice: online
+    softmax over key tiles of ``bk`` with f32 statistics, P split into bf16
+    P_hi + P_lo, both products of bf16 operands accumulated in f32, the row
+    sum from the f32 P, causal mask. Returns the f32 output and the same
+    with P rounded once to bf16."""
+    S, D = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale = D ** -0.5
+    m = torch.full((S, 1), -torch.inf)
+    l = torch.zeros(S, 1)
+    acc, acc_once = torch.zeros(S, D), torch.zeros(S, D)
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        s = (qf @ kf[k0:k0 + bk].T) * scale
+        s = torch.where(torch.arange(k0, min(S, k0 + bk))[None, :] <= rows, s, -torch.inf)
+        m_new = torch.maximum(m, s.max(dim=1, keepdim=True).values)
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(s - m_use)
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        l = alpha * l + p.sum(dim=1, keepdim=True)
+        acc = alpha * acc + p_hi @ vf[k0:k0 + bk] + p_lo @ vf[k0:k0 + bk]
+        acc_once = alpha * acc_once + p_hi @ vf[k0:k0 + bk]
+        m = m_new
+    return acc / l, acc_once / l
+
+
+def test_flash_split_p_holds_the_card_tolerance():
+    """CPU evidence for the bf16 kernel's one numerical choice: with P split
+    into two bf16 parts, the output stays within chip_smoke.py's bf16 check
+    (rtol 2^-7, atol 1e-4) of ``flash_ref`` at S 1024, D 128; the split's
+    error before the output's rounding is far below a single rounding's,
+    and a single rounding of P would break the check."""
+    rng = np.random.default_rng(11)
+    q, k, v = (T(rng.standard_normal((2, 1024, 128)).astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    want = ref.flash_ref(q, k, v, causal=True)
+    exact = ref.flash_ref(q.float(), k.float(), v.float(), causal=True)
+    for b in range(2):
+        split, once = _flash_split_p(q[b], k[b], v[b])
+        torch.testing.assert_close(split.to(torch.bfloat16).float(), want[b].float(),
+                                   rtol=2.0**-7, atol=1e-4)
+        err_split = float((split - exact[b]).abs().max())
+        err_once = float((once - exact[b]).abs().max())
+        assert err_split * 16 < err_once, (err_split, err_once)
+        assert not torch.allclose(once.to(torch.bfloat16).float(), want[b].float(),
+                                  rtol=2.0**-7, atol=1e-4)
+
+
 # ---- layers ---------------------------------------------------------------------
 
 def test_rmsnorm_layernorm_f32():
