@@ -5,11 +5,13 @@
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` and prints the build time and ptxas's
-   report (registers, shared memory, spills) for the flash kernels.
+   report (registers, shared memory, spills) for the flash, ``lp_gain``
+   and ``contract_edges`` kernels.
 2. Holds every kernel against its plain PyTorch version on the card, on
-   inputs captured from the main path at its top-level shapes (``lp_gain``:
-   from the root's partition call, both restarts), and times both (CUDA
-   events, median of several runs after a warm-up).
+   inputs captured from the main path at its top-level shapes, and times
+   both (CUDA events, median of several runs after a warm-up; the
+   kernel also behind a spin on the card, ``device_ms``, see PAD_CYCLES);
+   ``contract_edges`` and ``lp_gain`` follow in phase 6.
 3. Runs ``shared_map`` on small unit-weight instances on the card and on
    the CPU, with the refinement backend pinned to ``ell`` and to ``xla`` on
    both sides, and requires the same ``pe_of``.
@@ -22,7 +24,14 @@
    hierarchy 4:8:6 with D = 1:10:100 (k = 192) and ``SharedMapConfig()``
    (``auto`` = ``ell`` on the card) and with ``xla`` pinned for comparison,
    twice each in turns (ell, xla, xla, ell). Every path reads the launch
-   counts around its run.
+   counts around its run. A fifth run under ``ell`` puts a CUDA event pair
+   around every launch of the five mapping kernels and prints, per kernel
+   and per padded size, the launches, the summed ms and the median ms per
+   launch. It captures, at each padded size of a partition call (2^20,
+   2^18, 2^15), the inputs of the first ``contract_edges`` call of the
+   first partition call there and of the last ``lp_gain`` call of the last
+   one; both kernels are held bitwise against their plain versions and
+   timed at all three.
 7. The serving path: the llama3.2 smoke config's prefill on the card
    against the CPU, then llama3.2-3b at full width (28 layers, d_model
    3072, random weights from a seeded ``torch.Generator``). ``prefill_fn`` on
@@ -86,8 +95,18 @@ LOGITS_ATOL, LOGITS_RTOL = 0.15, 0.1
 FLASH_TOL = {"bfloat16": (2.0**-7, 1e-4), "float32": (0.0, 2e-5)}
 
 
-def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` event-timed runs."""
+# With ``pad``, a spin of this many cycles (about 1 ms) runs on the card
+# before the first event of a timed call, so the host has queued the call and
+# its second event before the card reaches the first: the pair then reads the
+# card's time for the call alone, not the host's cost of issuing it (tens of
+# microseconds, more than a small kernel takes). The kernels line's ``ms`` is
+# timed without it, as in earlier runs; ``device_ms`` with it.
+PAD_CYCLES = 2_000_000
+
+
+def _time_ms(fn, reps: int = 10, warmup: int = 2, pad: bool = False) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` event-timed runs, each
+    behind a spin of PAD_CYCLES on the card if ``pad``."""
     import torch
     for _ in range(warmup):
         fn()
@@ -95,6 +114,8 @@ def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if pad:
+            torch.cuda._sleep(PAD_CYCLES)
         a.record()
         fn()
         b.record()
@@ -109,18 +130,98 @@ def _bound(nbytes: int, flops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple[f
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _capture(module, name: str, store: list, last_only: bool = False):
-    """Wrap ``module.name`` so each call's arguments are kept in ``store``
-    (only the latest call's with ``last_only``)."""
+def _capture(module, name: str, store: list):
+    """Wrap ``module.name`` so each call's arguments are kept in ``store``."""
     orig = getattr(module, name)
 
     def rec(*args):
-        if last_only:
-            store.clear()
         store.append(args)
         return orig(*args)
     setattr(module, name, rec)
     return orig
+
+
+MAPPING_KERNELS = ("gather_rows", "hem_propose", "contract_edges", "mapcost", "lp_gain")
+
+
+def _timed_main_path(run, kops):
+    """Run ``run()`` with a CUDA event pair around every launch of the
+    mapping kernels (the routes in ``kops``), each behind a spin so that the
+    pair reads the card's time for the launch (see PAD_CYCLES). Returns
+    ``(out, times, captures)``: ``times[kernel][n]`` lists each launch's ms
+    by the leading size n of its first input (the padded N for the ELL
+    kernels), and ``captures[kernel][n]`` the arguments of the first
+    ``contract_edges`` call at n (that of the first partition call there)
+    and of the last ``lp_gain`` call at n (the last partition call's; its
+    labels cloned)."""
+    import torch
+    marks, caps = [], {"contract_edges": {}, "lp_gain": {}}
+    saved = {name: getattr(kops, name) for name in MAPPING_KERNELS}
+
+    def hook(name, orig):
+        def timed(*args):
+            n = int(args[0].shape[0])
+            if name == "contract_edges":
+                caps[name].setdefault(n, args)
+            elif name == "lp_gain":
+                caps[name][n] = (args[0], args[1], args[2].clone(), args[3])
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(PAD_CYCLES)
+            a.record()
+            out = orig(*args)
+            b.record()
+            marks.append((name, n, a, b))
+            return out
+        return timed
+    for name, orig in saved.items():
+        setattr(kops, name, hook(name, orig))
+    try:
+        out = run()
+    finally:
+        for name, orig in saved.items():
+            setattr(kops, name, orig)
+    torch.cuda.synchronize()
+    times: dict = {}
+    for name, n, a, b in marks:
+        times.setdefault(name, {}).setdefault(n, []).append(a.elapsed_time(b))
+    return out, times, caps
+
+
+def _contract_case(args):
+    """A captured ``contract_edges`` call as ``(label, kernel, plain, args,
+    bytes, operations, library)``. Bytes: each input read once, each output
+    written once. Operations: what this data needs, one compare-add for
+    each pair of live slots of a row."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coarsen_kernels import contract_edges_cuda
+    cand, candw = args
+    N, D2 = cand.shape
+    live = (cand != N).sum(1, dtype=torch.int64)
+    return (f"[{N}, {D2}], {int(live.sum())} live slots",
+            lambda a, b: contract_edges_cuda(a, b, N),
+            lambda a, b: ref.contract_edges_ref(a, b, N), (cand, candw),
+            16 * N * D2 + 4 * N, int((live * live).sum()), None)
+
+
+def _lp_gain_case(args):
+    """A captured ``lp_gain`` call, as :func:`_contract_case`. Operations:
+    one add per live slot and restart. Library: ``scatter_add_`` of conn."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lp_gain import lp_gain_cuda
+    adj, adw, parts, k = args
+    N, DEG = adj.shape
+    R = parts.shape[0]
+    nbr = torch.where(adj < N, parts[:, adj.clamp(0, N - 1)], 0).long()
+    live = int((adj < N).sum())
+    return (f"N={N} DEG={DEG} R={R} k={k}, {live} live slots",
+            lambda a, w, p: lp_gain_cuda(a, w, p, k),
+            lambda a, w, p: ref.lp_gain_ref(a, w, p, k), (adj, adw, parts),
+            8 * N * DEG + 4 * R * N + R * N * (4 * k + 8), R * live,
+            lambda a, w, p: torch.zeros(R, N, k, device=a.device).scatter_add_(
+                2, nbr, w.expand(R, N, DEG)))
 
 
 def _run_path(name, fn, expect, _build):
@@ -371,14 +472,13 @@ def main() -> int:
     from repro_torch.core import coarsen as C
     from repro_torch.core import graph as G
     from repro_torch.core import multisection as MS
-    from repro_torch.core import refine as R
     from repro_torch.core.api import SharedMapConfig, shared_map, shared_map_direct
     from repro_torch.core.hierarchy import _tables, parse_hierarchy
     from repro_torch.core.mapping import evaluate_J
     from repro_torch.core.partition import num_levels, partition
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose_cuda
-    from repro_torch.kernels.lp_gain import lp_gain_cuda
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.coarsen_kernels import hem_propose_cuda
     from repro_torch.kernels.mapcost import mapcost_cuda
     from repro_torch.kernels.split import gather_rows_cuda
 
@@ -394,8 +494,9 @@ def main() -> int:
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.BUILD_SECONDS:.1f} s)", flush=True)
-    for line in _build.ptxas_report("flash_attention.cu"):
-        print(f"ptxas flash_attention.cu: {line}", flush=True)
+    for source in ("flash_attention.cu", "lp_gain.cu", "contract_edges.cu"):
+        for line in _build.ptxas_report(source):
+            print(f"ptxas {source}: {line}", flush=True)
     smem = {d: _build.library().flash_attention_bf16_smem(d) for d in (64, 128, 256)}
     print(f"flash_kernel_wgmma dynamic shared memory per block, by D: {smem} B "
           f"(ptxas counts only static shared memory)", flush=True)
@@ -417,9 +518,8 @@ def main() -> int:
           flush=True)
 
     # ---- 2. every kernel against its plain version on the card ------------
-    hem_in, con_in, gat_in = [], [], []
+    hem_in, gat_in = [], []
     saved = [_capture(C.kops, "hem_propose", hem_in),
-             _capture(C.kops, "contract_edges", con_in),
              _capture(G.kops, "gather_rows", gat_in)]
     try:
         gc, _ = C.coarsen_once(gp, salt=138, ell_deg=deg_root)   # the root's level 0
@@ -428,14 +528,17 @@ def main() -> int:
         orig = torch.arange(N0, dtype=torch.int32, device=dev)
         G.split_blocks(gp, part, orig, top, sent)
     finally:
-        C.kops.hem_propose, C.kops.contract_edges, G.kops.gather_rows = saved
+        C.kops.hem_propose, G.kops.gather_rows = saved
     del gc
     torch.cuda.synchronize()
 
     rows = []
 
     def check(name, kernel, plain, args, exact, nbytes, flops, library=None,
-              library_args=None, rtol=0.0, atol=0.0, ops_per_s=F32_OPS_PER_S):
+              library_args=None, rtol=0.0, atol=0.0, ops_per_s=F32_OPS_PER_S,
+              record=True, label=""):
+        """Hold ``kernel`` against ``plain`` on ``args`` and time both (and
+        ``library``); the numbers join the kernels line if ``record``."""
         got = kernel(*args)
         want = plain(*args)
         got = got if isinstance(got, tuple) else (got,)
@@ -455,20 +558,26 @@ def main() -> int:
                     r = d / (atol + rtol * b.double().abs())
                     used = max(used, float(torch.where(d == 0, 0.0, r).max()))
         ms = _time_ms(lambda: kernel(*args))
+        device_ms = _time_ms(lambda: kernel(*args), pad=True)
         plain_ms = _time_ms(lambda: plain(*args), reps=5, warmup=1)
         lib_args = args if library_args is None else library_args
         lib_ms = _time_ms(lambda: library(*lib_args)) if library else None
         bound_ms, bound_by = _bound(nbytes, flops, ops_per_s)
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": TPU_KERNELS[name], "launches": None,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+               "replaces": TPU_KERNELS[name], "launches": None,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+               "device_ms": device_ms}
+        if record:
+            rows.append(row)
         agree = ("bitwise" if exact else
                  f"rtol {rtol:.4g} atol {atol:.4g}, worst {used:.3g} of the allowed error")
-        print(f"kernel {name}: agrees ({agree}, max_abs_err {err:.3g}) "
-              f"ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+        print(f"kernel {name}{label}: agrees ({agree}, max_abs_err {err:.3g}) "
+              f"ms {ms:.4f} device_ms {device_ms:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bound_ms:.4f} "
               f"({bound_by}) library_ms {lib_ms}", flush=True)
+        return row
 
     # gather_rows: all five calls of the top-level split, timed on the
     # largest (the [top, M] edge-weight gather)
@@ -488,44 +597,13 @@ def main() -> int:
     Nh, Dh = adj.shape
     check("hem_propose", hem_propose_cuda, ref.hem_propose_ref, hem_in[0], True,
           12 * Nh * Dh + 8 * Nh, 4 * Nh * Dh)
-    cand, candw = con_in[0]
-    Nc, D2 = cand.shape
-    check("contract_edges", lambda a, b: contract_edges_cuda(a, b, Nc),
-          lambda a, b: ref.contract_edges_ref(a, b, Nc), (cand, candw), True,
-          16 * Nc * D2 + 4 * Nc, Nc * D2 * D2)
     gen = torch.Generator(device="cpu").manual_seed(0)
     pe_rand = torch.randint(0, h.k, (N0,), generator=gen, dtype=torch.int32).to(dev)
     gb, dv = _tables(h, dev)
     check("mapcost", mapcost_cuda, ref.mapcost_ref,
           (gp.rows, gp.cols, gp.ewgt, pe_rand, gb, dv), False,
           12 * M0 + 4 * N0, 2 * M0, rtol=1e-5)
-    del hem_in, con_in, gat_in, src, idx, adj, cand, candw
-    torch.cuda.empty_cache()
-
-    # lp_gain: the last call of the root's partition call under "ell" (the
-    # finest level's v-cycle, both eco restarts), as the planner issues it
-    lp_in = []
-    saved = _capture(R.kops, "lp_gain", lp_in, last_only=True)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        partition(gp, top, 0.03, lv, "eco", 0, "ell", deg_root, device=dev)
-        torch.cuda.synchronize()
-        root_s = time.perf_counter() - t0
-    finally:
-        R.kops.lp_gain = saved
-    adj, adw, parts, kk = lp_in[0]
-    Nl, Dl = adj.shape
-    Rl = parts.shape[0]
-    nbr = torch.where(adj < Nl, parts[:, adj.clamp(0, Nl - 1)], 0).long()
-    print(f"root partition call under ell: {root_s:.2f} s; lp_gain captured at "
-          f"N={Nl} DEG={Dl} R={Rl} k={kk}", flush=True)
-    check("lp_gain", lambda a, w, p: lp_gain_cuda(a, w, p, kk),
-          lambda a, w, p: ref.lp_gain_ref(a, w, p, kk), (adj, adw, parts), True,
-          8 * Nl * Dl + 4 * Rl * Nl + Rl * Nl * (4 * kk + 8), Rl * Nl * Dl,
-          library=lambda a, w, p: torch.zeros(Rl, Nl, kk, device=dev).scatter_add_(
-              2, nbr, w.expand(Rl, Nl, Dl)))
-    del lp_in, adj, adw, parts, nbr
+    del hem_in, gat_in, src, idx, adj
     torch.cuda.empty_cache()
 
     # ---- 3. small instances: the card's pe_of equals the CPU's -------------
@@ -653,7 +731,40 @@ def main() -> int:
         if not r.J < j_rand:
             raise AssertionError(f"J {r.J} not below the random mapping's {j_rand}")
 
-    del g, gp, res, res2, res_x, res_x2
+    # every launch of the mapping kernels timed, in a fifth run under ell;
+    # contract_edges and lp_gain held and timed at the captured shapes
+    (out_t, times, caps), t_timed, launches_t = _run_path(
+        "main path, every launch timed",
+        lambda: _timed_main_path(lambda: main_path(SharedMapConfig()), kops), every,
+        _build)
+    if not np.array_equal(out_t[0].pe_of, pe):
+        raise AssertionError("the timed main path gave another pe_of")
+    by_n = {}
+    for name in MAPPING_KERNELS:
+        per = times.get(name, {})
+        if sum(map(len, per.values())) != launches_t[name]:
+            raise AssertionError(f"{name}: {sum(map(len, per.values()))} timed calls, "
+                                 f"{launches_t[name]} launches")
+        by_n[name] = {str(n): {"launches": len(v), "ms": sum(v),
+                               "ms_per_launch": statistics.median(v)}
+                      for n, v in sorted(per.items(), reverse=True)}
+        print(f"main path, every launch timed: {name} {launches_t[name]} launches, "
+              f"{sum(map(sum, per.values())):.4f} ms in all; " + "; ".join(
+                  f"n={n}: {d['launches']} launches, {d['ms']:.4f} ms, median "
+                  f"{d['ms_per_launch']:.5f} ms" for n, d in by_n[name].items()), flush=True)
+    print(f"main path, every launch timed: {t_timed:.2f} s end to end (with the "
+          f"events' host cost), pe_of equal to the first run's", flush=True)
+    for name, case in (("contract_edges", _contract_case), ("lp_gain", _lp_gain_case)):
+        top_n = max(caps[name])
+        for n in sorted(caps[name], reverse=True):   # the root's shape joins the line
+            label, kernel, plain, args, nbytes, flops, lib = case(caps[name][n])
+            row = check(name, kernel, plain, args, True, nbytes, flops, library=lib,
+                        record=n == top_n, label=f" at {label}")
+            by_n[name][str(n)].update(
+                kernel_ms=row["ms"], device_ms=row["device_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                plain_ms=row["plain_ms"], library_ms=row["library_ms"])
+    del g, gp, res, res2, res_x, res_x2, out_t, times, caps
     torch.cuda.empty_cache()
 
     # ---- 7. the serving path: llama3.2-3b at full width ---------------------
@@ -661,8 +772,12 @@ def main() -> int:
 
     # ---- 8. the kernels line and the contract's last line -------------------
     for r in rows:
-        r["launches"] = (flash_launches if r["name"] == "flash_attention"
-                         else launches[r["name"]])
+        if r["name"] == "flash_attention":
+            r["launches"] = flash_launches
+            continue
+        r["launches"] = launches[r["name"]]
+        r["main_path_ms"] = sum(d["ms"] for d in by_n[r["name"]].values())
+        r["by_n"] = by_n[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ the TPU kernels ``repro/kernels/coarsen_kernels.py:hem_propose_pallas`` and
 ``contract_edges_pallas``. Both are bitwise the plain versions in
 ``kernels/ref.py`` (``hem_propose_ref``, ``contract_edges_ref``): the score
 is the one fused multiply-add the reference rounds once, the reductions
-are max/min, and weight totals are the reference's fixed add chain.
+are max/min, and a weight total adds the id's weights in slot order from
++0.0, which is bitwise the reference's fixed add chain (the chain's other
+terms are +0.0).
 """
 from __future__ import annotations
 

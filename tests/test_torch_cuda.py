@@ -17,7 +17,7 @@ from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose_cuda
 from repro_torch.kernels.flashattn import flash_attention_cuda
-from repro_torch.kernels.lp_gain import lp_gain_cuda
+from repro_torch.kernels.lp_gain import PACK_FROM, lp_gain_cuda
 from repro_torch.kernels.mapcost import mapcost_cuda
 from repro_torch.kernels.split import gather_rows_cuda
 
@@ -117,6 +117,112 @@ def test_lp_gain_bitwise(cuda, DEG, k, R, weights):
     single = lp_gain_cuda(args[0], args[1], args[2][0].contiguous(), k)
     for a, b in zip(single, got):
         assert torch.equal(a, b[0])
+
+
+def _assert_bitwise(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _lp_gain_inputs(N, DEG, k, R, padding, seed):
+    """Random ELL rows with non-integer weights; ``padding`` puts the
+    padding ids at random slots, only at the end of each row (as
+    ``ell_adjacency`` does), or fills every other row with it."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    adj = torch.randint(0, N, (N, DEG), generator=gen, dtype=torch.int32)
+    if padding == "random":
+        adj[torch.rand(N, DEG, generator=gen) < 0.6] = N + 7
+    elif padding == "end":
+        live = torch.randint(0, DEG + 1, (N, 1), generator=gen)
+        adj = torch.where(torch.arange(DEG)[None] < live, adj, torch.full_like(adj, N))
+    elif padding == "empty_rows":
+        adj[::2] = N
+    adw = torch.where(adj < N, torch.rand(N, DEG, generator=gen) * 4, 0.0)
+    part = torch.randint(0, k, (R, N), generator=gen, dtype=torch.int32)
+    return adj, adw, part
+
+
+@pytest.mark.parametrize("padding", ["random", "end", "empty_rows"])
+@pytest.mark.parametrize("k", [4, 6, 8])
+def test_lp_gain_main_path_shapes(cuda, k, padding):
+    """DEG 24, R 2 as the main path runs it, at a few thousand rows (not a
+    multiple of the block's rows)."""
+    args = [x.to(cuda) for x in _lp_gain_inputs(4099, 24, k, 2, padding, seed=k)]
+    _assert_bitwise(lp_gain_cuda(*args, k), ref.lp_gain_ref(*args, k))
+
+
+@pytest.mark.parametrize("N", [1, 127, 129, 1000])
+def test_lp_gain_all_padding_and_ragged_n(cuda, N):
+    """Rows that are all padding take the write-only path: conn 0, best the
+    first block other than the row's own, gain 0."""
+    gen = torch.Generator(device="cpu").manual_seed(N)
+    adj = torch.full((N, 24), N, dtype=torch.int32, device=cuda)
+    adw = torch.zeros(N, 24, device=cuda)
+    part = torch.randint(0, 6, (2, N), generator=gen, dtype=torch.int32).to(cuda)
+    conn, best, gain = lp_gain_cuda(adj, adw, part, 6)
+    _assert_bitwise((conn, best, gain), ref.lp_gain_ref(adj, adw, part, 6))
+    assert torch.equal(conn, torch.zeros_like(conn))
+    assert torch.equal(best, (part == 0).to(torch.int32))
+    assert torch.equal(gain.view(torch.int32), torch.zeros_like(best))
+    args = [x.to(cuda) for x in _lp_gain_inputs(N, 24, 6, 2, "random", seed=N + 1)]
+    _assert_bitwise(lp_gain_cuda(*args, 6), ref.lp_gain_ref(*args, 6))
+
+
+@pytest.mark.parametrize("padding", ["random", "end"])
+def test_lp_gain_k64_r4(cuda, padding):
+    """k 64 with four restarts: more sums than one pass holds."""
+    args = [x.to(cuda) for x in _lp_gain_inputs(1500, 64, 64, 4, padding, seed=64)]
+    _assert_bitwise(lp_gain_cuda(*args, 64), ref.lp_gain_ref(*args, 64))
+
+
+@pytest.mark.parametrize("k,R", [(4, 3), (5, 1), (8, 3), (9, 2), (33, 1), (64, 3)])
+def test_lp_gain_block_counts(cuda, k, R):
+    """Block counts on either side of the kernel's routes (sums in registers
+    for k <= 4 and k <= 8, in shared memory above), with odd R."""
+    args = [x.to(cuda) for x in _lp_gain_inputs(2000, 24, k, R, "random", seed=k * 10 + R)]
+    _assert_bitwise(lp_gain_cuda(*args, k), ref.lp_gain_ref(*args, k))
+
+
+@pytest.mark.parametrize("k,R", [(6, 2), (40, 3), (6, 4), (64, 4)])
+def test_lp_gain_large_n(cuda, k, R):
+    """Enough rows (N >= ``lp_gain.PACK_FROM``) for the packed labels, one
+    byte a restart, up to the fourth restart's byte (R = 4)."""
+    assert 150_001 >= PACK_FROM
+    args = [x.to(cuda) for x in _lp_gain_inputs(150_001, 24, k, R, "end", seed=k + R)]
+    _assert_bitwise(lp_gain_cuda(*args, k), ref.lp_gain_ref(*args, k))
+
+
+def _contract_inputs(N, D2, case, seed):
+    """Candidate rows of ``contract_edges`` (sentinel N), with weights that
+    hold +0.0, -0.0 and negative values."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cand = torch.randint(0, 24, (N, D2), generator=gen, dtype=torch.int32)
+    cand[torch.rand(N, D2, generator=gen) < 0.4] = N
+    if case == "sentinel_rows":
+        cand[::3] = N
+    elif case == "one_id":
+        cand[:] = 5
+    elif case == "cross_32":
+        # few ids, so most rows repeat an id across the 32-slot boundaries
+        cand = torch.randint(0, 3, (N, D2), generator=gen, dtype=torch.int32)
+    w = torch.randn(N, D2, generator=gen)
+    w[torch.rand(N, D2, generator=gen) < 0.15] = 0.0
+    w[torch.rand(N, D2, generator=gen) < 0.15] = -0.0
+    return cand, w
+
+
+@pytest.mark.parametrize("case", ["random", "sentinel_rows", "one_id", "cross_32"])
+@pytest.mark.parametrize("D2", [1, 16, 33, 48, 64, 128])
+def test_contract_edges_cases(cuda, D2, case):
+    N = 1000
+    cand, w = (x.to(cuda) for x in _contract_inputs(N, D2, case, seed=D2))
+    got = contract_edges_cuda(cand, w, N)
+    _assert_bitwise(got, ref.contract_edges_ref(cand, w, N))
+    if case == "sentinel_rows":
+        assert torch.equal(got[0][::3], torch.full_like(cand[::3], N))
+        assert torch.equal(got[1][::3].view(torch.int32), torch.zeros_like(cand[::3]))
+        assert not got[2][::3].any()
 
 
 def test_lp_gain_rejects_bad_shapes(cuda, ell):

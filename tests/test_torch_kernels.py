@@ -122,6 +122,57 @@ def test_contract_edges_ref_bitwise(D2):
         assert np.array_equal(a.numpy().view(np.int32), b.view(np.int32))
 
 
+def _dedup_live_slots(cand, candw, sent):
+    """The CUDA kernel's order (``csrc/contract_edges.cu``): per row, each
+    id's first slot s gets +0.0 + candw[s] and then the weights of the later
+    slots holding the same id, in increasing slot order; no other slot is
+    added, and a duplicate is never visited again."""
+    N, D2 = cand.shape
+    nbr = np.full_like(cand, sent)
+    w = np.zeros_like(candw)
+    cnt = np.zeros(N, np.int32)
+    for r in range(N):
+        live = [j for j in range(D2) if cand[r, j] != sent]
+        while live:
+            s, x = live[0], cand[r, live[0]]
+            acc = np.float32(0.0) + candw[r, s]
+            rest = []
+            for j in live[1:]:
+                if cand[r, j] == x:
+                    acc = np.float32(acc + candw[r, j])
+                else:
+                    rest.append(j)
+            live = rest
+            nbr[r, s], w[r, s] = x, acc
+            cnt[r] += 1
+    return nbr, w, cnt
+
+
+@pytest.mark.parametrize("case", ["random", "sentinel_rows", "one_id", "cross_32"])
+@pytest.mark.parametrize("D2", [1, 16, 33, 48, 64, 128])
+def test_contract_edges_live_slot_order_is_the_chain(D2, case):
+    """Summing only the matching slots in slot order from +0.0 is bitwise the
+    reference's fixed chain of D2 adds (which adds +0.0 for every other
+    slot), on weights holding +0.0, -0.0 and negative values."""
+    rng = np.random.default_rng(D2 * 10 + len(case))
+    N = 160
+    cand = rng.integers(0, 24, (N, D2)).astype(np.int32)
+    if case == "cross_32":   # few ids: repeats across the 32-slot boundaries
+        cand = rng.integers(0, 3, (N, D2)).astype(np.int32)
+    cand[rng.random((N, D2)) < 0.4] = N
+    if case == "sentinel_rows":
+        cand[::3] = N
+    elif case == "one_id":
+        cand[:] = 5
+    candw = rng.standard_normal((N, D2)).astype(np.float32)
+    candw[rng.random((N, D2)) < 0.15] = 0.0
+    candw[rng.random((N, D2)) < 0.15] = -0.0
+    want = ref.merge_dedup_rows(T(cand), T(candw), N)
+    for a, b in zip(_dedup_live_slots(cand, candw, N), want):
+        assert a.dtype == b.numpy().dtype
+        assert np.array_equal(a.view(np.int32), b.numpy().view(np.int32))
+
+
 def test_mapcost_ref_rtol():
     rng = np.random.default_rng(4)
     N, M = 900, 5000
