@@ -7,24 +7,22 @@ an earlier design of the same two kernels, in one process on one NVIDIA GPU.
 ``OLD_CHECKOUT`` is the root of an earlier checkout of this repository, for
 example the parent commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists. Its ``src/repro_torch/kernels/csrc/lp_gain.cu`` and
-``contract_edges.cu`` are built with its own nvcc flags and called with its
-own entry signatures (both read from its ``kernels/_build.py``) in place of
-this checkout's two entry points; everything else runs from this checkout.
-
-Designs, in this order: ``old``; ``new``, this checkout as it is; ``new, no
-pack`` and ``new, pack always``, this checkout with ``lp_gain``'s label
-packing (``kernels/lp_gain.py:PACK_FROM``) at no N and at every N (R <= 4).
+``contract_edges.cu`` are built with its own nvcc flags (read from its
+``kernels/_build.py``, whose entry signatures must equal this checkout's)
+and called in place of this checkout's two entry points; everything else
+runs from this checkout.
 
 1. Runs ``chip_smoke.py``'s mapping main path (``gen_rgg(2**20, seed=0)`` on
-   4:8:6, ``SharedMapConfig()``, ``ell`` on the card) once per design, every
-   launch of the mapping kernels timed behind a spin on the card
-   (``chip_smoke._timed_main_path``), and requires the same ``pe_of`` from
-   every design. Prints each kernel's summed ms, by padded N.
-2. On the inputs the ``new`` run captured at each padded N (2^20, 2^18,
-   2^15), holds every design bitwise against the plain version and times it
-   twice, the designs in turns (forward, then backward), each timing the
-   median of 20 event-timed runs (50 below N = 2^19) without the spin
-   (``ms``, as ``chip_smoke.py``'s ``ms``) and with it (``device_ms``).
+   4:8:6, ``SharedMapConfig()``, ``ell`` on the card) with every launch of
+   the mapping kernels timed behind a spin on the card
+   (``chip_smoke._timed_main_path``), first with the old kernels, then with
+   this checkout's, and requires the same ``pe_of`` from both. Prints each
+   kernel's summed ms, by padded N.
+2. On the inputs this checkout's run captured at each padded N (2^20, 2^18,
+   2^15), holds both designs bitwise against the plain version and times
+   each twice, in turns (old, new, new, old), each timing the median of 20
+   event-timed runs (50 below N = 2^19) without the spin (``ms``, as
+   ``chip_smoke.py``'s ``ms``) and with it (``device_ms``).
 3. Prints one JSON object as the last line and writes it to ``--out``.
 
 It exits with code 2 without a CUDA device. It imports nothing of JAX.
@@ -46,8 +44,8 @@ ENTRIES = ("lp_gain_f32", "contract_edges_f32")
 
 
 def _load_old(old_root: Path, build_dir: Path):
-    """Build the earlier checkout's two sources into one library; returns an
-    object with its two entry points, taking this checkout's arguments."""
+    """Build the earlier checkout's two sources into one library and bind
+    their entry points, which must take this checkout's arguments."""
     from repro_torch.kernels import _build
     csrc = old_root / "src/repro_torch/kernels/csrc"
     spec = importlib.util.spec_from_file_location(
@@ -65,19 +63,13 @@ def _load_old(old_root: Path, build_dir: Path):
         if any(w in line for w in ("Compiling entry", "spill", "Used")):
             print(f"ptxas old: {line.strip()}", flush=True)
     lib = ctypes.CDLL(str(out))
-    fns = {}
     for name in ENTRIES:
+        if old_build._SIGNATURES[name] != _build._SIGNATURES[name]:
+            raise RuntimeError(f"the old {name} takes other arguments than this checkout's")
         fn = getattr(lib, name)
         fn.argtypes = old_build._SIGNATURES[name]
         fn.restype = ctypes.c_int
-        fns[name] = fn
-    new_sig, old_sig = _build._SIGNATURES["lp_gain_f32"], old_build._SIGNATURES["lp_gain_f32"]
-    lp_gain = fns["lp_gain_f32"]
-    if len(old_sig) == len(new_sig) - 1:   # an lp_gain_f32 without the scratch pointer
-        fns["lp_gain_f32"] = lambda *a: lp_gain(*a[:3], *a[4:])
-    elif len(old_sig) != len(new_sig):
-        raise RuntimeError(f"old lp_gain_f32 takes {len(old_sig)} arguments")
-    return type("OldKernels", (), {k: staticmethod(v) for k, v in fns.items()})
+    return lib
 
 
 class _Swap:
@@ -111,7 +103,6 @@ def main() -> int:
     from repro_torch.core.api import SharedMapConfig, shared_map
     from repro_torch.core.hierarchy import parse_hierarchy
     from repro_torch.kernels import _build
-    from repro_torch.kernels import lp_gain as lpg
     from repro_torch.kernels import ops as kops
 
     dev = torch.device("cuda")
@@ -120,20 +111,15 @@ def main() -> int:
                          timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     new = _build.library()
-    old = _load_old(args.old.resolve(), _build.BUILD_DIR / "ab_old")
-    shipped = lpg.PACK_FROM
-    designs = {"old": (old, shipped), "new": (new, shipped),
-               "new, no pack": (new, 1 << 62), "new, pack always": (new, 0)}
+    designs = {"old": _load_old(args.old.resolve(), _build.BUILD_DIR / "ab_old"), "new": new}
 
     def use(name):
-        lib, pack_from = designs[name]
-        _build._LIB = _Swap(new, lib)
-        lpg.PACK_FROM = pack_from
+        _build._LIB = _Swap(new, designs[name])
 
     g = G.gen_rgg(cs.RGG_N, seed=0, device=dev)
     h = parse_hierarchy(*cs.HIERARCHY)
     small = G.gen_rgg(2000, seed=3, device=dev)
-    for name in designs:   # every module loaded and every design run once
+    for name in designs:   # every module loaded and both designs run once
         use(name)
         shared_map(small, h, SharedMapConfig(), device=dev)
     result = {"card": smi, "main_path": {}, "shapes": {}}
@@ -142,12 +128,10 @@ def main() -> int:
         use(name)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res, times, c = cs._timed_main_path(
+        res, times, caps = cs._timed_main_path(
             lambda: shared_map(g, h, SharedMapConfig(), device=dev), kops)
         sec = time.perf_counter() - t0
         pes[name] = res.pe_of
-        if name == "new":
-            caps = c
         summ = {k: {"ms": sum(map(sum, per.values())),
                     "by_n": {str(n): {"launches": len(v), "ms": sum(v)}
                              for n, v in sorted(per.items(), reverse=True)}}
@@ -157,20 +141,17 @@ def main() -> int:
               + "; ".join(f"{k} {v['ms']:.4f} ms (" + ", ".join(
                   f"n={n}: {d['launches']} launches {d['ms']:.4f} ms"
                   for n, d in v["by_n"].items()) + ")" for k, v in summ.items()), flush=True)
-    ref_pe = pes["new"]
-    if not all(np.array_equal(ref_pe, p) for p in pes.values()):
-        raise AssertionError("the designs gave different pe_of on the main path")
-    print("main path: the same pe_of under every design", flush=True)
+    if not np.array_equal(pes["old"], pes["new"]):
+        raise AssertionError("the two designs gave different pe_of on the main path")
+    print("main path: the same pe_of under both designs", flush=True)
 
-    turn = list(designs) + list(designs)[::-1]
+    order = list(designs) + list(designs)[::-1]
     for kern, case in (("contract_edges", cs._contract_case), ("lp_gain", cs._lp_gain_case)):
-        names = list(designs) if kern == "lp_gain" else ["old", "new"]
-        order = [n for n in turn if n in names]
         for n in sorted(caps[kern], reverse=True):
             label, kernel, plain, kargs, nbytes, flops, _ = case(caps[kern][n])
             bound_ms, bound_by = cs._bound(nbytes, flops)
             want = plain(*kargs)
-            for name in names:
+            for name in designs:
                 use(name)
                 got = kernel(*kargs)
                 if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -178,18 +159,18 @@ def main() -> int:
                     raise AssertionError(f"{kern} [{name}] at {label}: not bitwise")
             reps = 50 if n < 2**19 else 20
             rec = {"label": label, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "ms": {k: [] for k in names}, "device_ms": {k: [] for k in names}}
+                   "ms": {k: [] for k in designs}, "device_ms": {k: [] for k in designs}}
             for name in order:
                 use(name)
                 rec["ms"][name].append(cs._time_ms(lambda: kernel(*kargs), reps, 3))
                 rec["device_ms"][name].append(
                     cs._time_ms(lambda: kernel(*kargs), reps, 3, pad=True))
             result["shapes"][f"{kern}@{n}"] = rec
-            print(f"{kern} at {label}, bitwise under every design; bound {bound_ms:.5f} ms "
+            print(f"{kern} at {label}, bitwise under both designs; bound {bound_ms:.5f} ms "
                   f"({bound_by}); ms, device_ms (two timings each): " + "; ".join(
                       f"{k} {rec['ms'][k][0]:.5f}/{rec['ms'][k][1]:.5f}, "
                       f"{rec['device_ms'][k][0]:.5f}/{rec['device_ms'][k][1]:.5f}"
-                      for k in names), flush=True)
+                      for k in designs), flush=True)
     use("new")
     line = json.dumps(result)
     if args.out:

@@ -58,8 +58,8 @@ _SIGNATURES = {
     "contract_edges_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (rows, cols, ewgt, pe, g_below, dvec, partial, M, N, l, blocks, stream)
     "mapcost_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (adj, adw, part, scratch or None, conn, best, gain, N, DEG, k, R, stream)
-    "lp_gain_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (adj, adw, part, conn, best, gain, N, DEG, k, R, stream)
+    "lp_gain_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (q, k, v, o, B, S, H, Hkv, D, scale, causal, window, stream)
     "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],

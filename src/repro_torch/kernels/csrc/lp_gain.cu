@@ -46,10 +46,12 @@
 //   every other block, which leaves them bitwise unchanged (Rounding); for
 //   larger k they live in shared memory, [b][lane], so whatever blocks the
 //   lanes hit, they hit 32 distinct banks.
-// - From N = 2^17 on (the wrapper's choice), with R <= 4, a first pass
-//   packs each vertex's labels under all restarts into one word, so the
-//   two lanes of a row gather one 32-byte sector a slot instead of two.
-//   Below that the extra pass costs more than it saves.
+// - The labels are gathered as they are, one per (live slot, restart).
+//   Packing a vertex's labels under all restarts into one word first, so
+//   the two lanes of a row share one sector a slot, took 11% off the
+//   finest level on an H100 but cost more than it saved over the mapping
+//   main path there: the pass
+//   runs over all N rows, and at most levels of a call few of them live.
 // - conn [R, N, k] leaves through shared memory: a warp's nrow * k values
 //   of a restart are one contiguous run, written by consecutive lanes;
 //   best and gain are written by each row's lane.
@@ -66,30 +68,14 @@ constexpr int kMaxK = 64;
 constexpr int kBatch = 8;       // slots walked at a time, their gathers in flight together
 typedef unsigned long long u64;
 
-// pk[u] holds the labels of vertex u under restarts 0..R-1 (R <= 4), one
-// byte each: a label outside [0, 255) becomes 255, which no k <= 64 counts.
-__global__ void pack_labels(const int* __restrict__ part, unsigned* __restrict__ pk,
-                            int N, int R) {
-  const long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (u >= N) return;
-  unsigned v = 0;
-  for (int r = 0; r < R; ++r) {
-    const unsigned b = (unsigned)part[(long long)r * N + u];
-    v |= (b < 255u ? b : 255u) << (8 * r);
-  }
-  pk[u] = v;
-}
-
 // Each warp of a block works alone on kRowsPerWarp consecutive rows, two
 // lanes a row: lane share sub (0 or 1) takes the restarts sub, sub + 2, ...,
 // one a pass. KR > 0 keeps the sums of k <= KR blocks in registers, KR == 0
-// in shared memory (any k). With pk (see pack_labels) a slot's labels under
-// all restarts come in one gather.
+// in shared memory (any k).
 template <int KR>
 __global__ void __launch_bounds__(32 * kWarps)
 lp_gain_kernel(const int* __restrict__ adj, const float* __restrict__ adw,
-               const int* __restrict__ part, const unsigned* __restrict__ pk,
-               float* __restrict__ conn, int* __restrict__ best,
+               const int* __restrict__ part, float* __restrict__ conn, int* __restrict__ best,
                float* __restrict__ gain, int N, int DEG, int k, int R) {
   extern __shared__ __align__(16) int smem[];
   constexpr int nw = kRowsPerWarp;
@@ -143,15 +129,9 @@ lp_gain_kernel(const int* __restrict__ adj, const float* __restrict__ adw,
         w[q] = on ? my_w[j] : 0.0f;
       }
       int lab[kBatch];
-      if (pk) {   // the two lanes of a row read one word: one sector a slot
 #pragma unroll
-        for (int q = 0; q < kBatch; ++q)
-          lab[q] = a[q] >= 0 ? (int)((__ldg(pk + a[q]) >> (8 * r)) & 255u) : -1;
-      } else {
-#pragma unroll
-        for (int q = 0; q < kBatch; ++q)
-          lab[q] = a[q] >= 0 ? __ldg(part + (long long)r * N + a[q]) : -1;
-      }
+      for (int q = 0; q < kBatch; ++q)
+        lab[q] = a[q] >= 0 ? __ldg(part + (long long)r * N + a[q]) : -1;
 #pragma unroll
       for (int q = 0; q < kBatch; ++q) {
         if constexpr (KR > 0) {   // +0.0f elsewhere changes nothing (Rounding)
@@ -200,8 +180,7 @@ lp_gain_kernel(const int* __restrict__ adj, const float* __restrict__ adw,
 }
 
 template <int KR>
-int launch(const int* adj, const float* adw, const int* part, const unsigned* pk,
-           float* conn, int* best, float* gain, int N, int DEG, int k, int R,
+int launch(const int* adj, const float* adw, const int* part, float* conn, int* best, float* gain, int N, int DEG, int k, int R,
            cudaStream_t stream) {
   const size_t smem = (size_t)kWarps * (2 * kRowsPerWarp * rows::pitch(DEG) + k * 32) *
                       sizeof(float);
@@ -212,16 +191,14 @@ int launch(const int* adj, const float* adw, const int* part, const unsigned* pk
   }
   const long long blocks = ((long long)N + kWarps * kRowsPerWarp - 1) / (kWarps * kRowsPerWarp);
   lp_gain_kernel<KR><<<(unsigned)blocks, 32 * kWarps, smem, stream>>>(
-      adj, adw, part, pk, conn, best, gain, N, DEG, k, R);
+      adj, adw, part, conn, best, gain, N, DEG, k, R);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: null, or [N] 32-bit words for the packed labels (R <= 4), which
-// the wrapper passes where the gathers outweigh the extra pass (N >= 2^17).
 extern "C" int lp_gain_f32(const void* adj, const void* adw, const void* part,
-                           void* scratch, void* conn, void* best, void* gain,
+                           void* conn, void* best, void* gain,
                            int N, int DEG, int k, int R, cudaStream_t stream) {
   if (N <= 0 || R <= 0) return 0;
   if (DEG < 1 || DEG > kMaxDeg || k < 2 || k > kMaxK)
@@ -232,13 +209,7 @@ extern "C" int lp_gain_f32(const void* adj, const void* adw, const void* part,
   float* c = static_cast<float*>(conn);
   int* b = static_cast<int*>(best);
   float* g = static_cast<float*>(gain);
-  unsigned* pk = R <= 4 ? static_cast<unsigned*>(scratch) : nullptr;
-  if (pk) {
-    pack_labels<<<(unsigned)(((long long)N + 255) / 256), 256, 0, stream>>>(p, pk, N, R);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (k <= 4) return launch<4>(a, w, p, pk, c, b, g, N, DEG, k, R, stream);
-  if (k <= 8) return launch<8>(a, w, p, pk, c, b, g, N, DEG, k, R, stream);
-  return launch<0>(a, w, p, pk, c, b, g, N, DEG, k, R, stream);
+  if (k <= 4) return launch<4>(a, w, p, c, b, g, N, DEG, k, R, stream);
+  if (k <= 8) return launch<8>(a, w, p, c, b, g, N, DEG, k, R, stream);
+  return launch<0>(a, w, p, c, b, g, N, DEG, k, R, stream);
 }

@@ -15,10 +15,6 @@ from . import _build
 
 MAX_DEG = 64   # a row's live slots are one 64-bit mask
 MAX_K = 64     # at most 64 sums per thread in shared memory
-# From this many rows on, with R <= 4 restarts, the kernel first packs the
-# labels of a vertex under all restarts into one word (a scratch [N] i32),
-# so a slot's labels come in one gather instead of R.
-PACK_FROM = 1 << 17
 
 
 def lp_gain_cuda(adj, adw, part, k: int):
@@ -50,12 +46,9 @@ def lp_gain_cuda(adj, adw, part, k: int):
     best = torch.empty(R, N, dtype=torch.int32, device=adj.device)
     gain = torch.empty(R, N, dtype=torch.float32, device=adj.device)
     if N and R:
-        scratch = (torch.empty(N, dtype=torch.int32, device=adj.device)
-                   if N >= PACK_FROM and R <= 4 else None)
         _build.launch("lp_gain", "lp_gain_f32", adj.device, adj.data_ptr(),
-                      adw.data_ptr(), parts.data_ptr(),
-                      None if scratch is None else scratch.data_ptr(),
-                      conn.data_ptr(), best.data_ptr(), gain.data_ptr(), N, DEG, k, R)
+                      adw.data_ptr(), parts.data_ptr(), conn.data_ptr(),
+                      best.data_ptr(), gain.data_ptr(), N, DEG, k, R)
     if part.dim() == 1:
         return conn[0], best[0], gain[0]
     return conn, best, gain

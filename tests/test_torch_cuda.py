@@ -17,7 +17,7 @@ from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose_cuda
 from repro_torch.kernels.flashattn import flash_attention_cuda
-from repro_torch.kernels.lp_gain import PACK_FROM, lp_gain_cuda
+from repro_torch.kernels.lp_gain import lp_gain_cuda
 from repro_torch.kernels.mapcost import mapcost_cuda
 from repro_torch.kernels.split import gather_rows_cuda
 
@@ -186,9 +186,8 @@ def test_lp_gain_block_counts(cuda, k, R):
 
 @pytest.mark.parametrize("k,R", [(6, 2), (40, 3), (6, 4), (64, 4)])
 def test_lp_gain_large_n(cuda, k, R):
-    """Enough rows (N >= ``lp_gain.PACK_FROM``) for the packed labels, one
-    byte a restart, up to the fourth restart's byte (R = 4)."""
-    assert 150_001 >= PACK_FROM
+    """Rows for over 2,300 blocks, with even and odd R and up to four
+    restarts (two passes of the two restarts a row's lanes take at once)."""
     args = [x.to(cuda) for x in _lp_gain_inputs(150_001, 24, k, R, "end", seed=k + R)]
     _assert_bitwise(lp_gain_cuda(*args, k), ref.lp_gain_ref(*args, k))
 
