@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Times this checkout's ``lp_gain`` and ``contract_edges`` kernels against
-an earlier design of the same two kernels, in one process on one NVIDIA GPU.
+"""Times this checkout's ``lp_gain``, ``contract_edges``, ``hem_propose`` and
+``mapcost`` kernels against an earlier design of the same four, in one
+process on one NVIDIA GPU.
 
     python3 chip_kernel_ab.py --old OLD_CHECKOUT [--out FILE.json]
 
 ``OLD_CHECKOUT`` is the root of an earlier checkout of this repository, for
 example the parent commit unpacked with ``git archive`` into a directory that
-``.gitignore`` lists. Its ``src/repro_torch/kernels/csrc/lp_gain.cu`` and
-``contract_edges.cu`` are built with its own nvcc flags (read from its
-``kernels/_build.py``, whose entry signatures must equal this checkout's)
-and called in place of this checkout's two entry points; everything else
-runs from this checkout.
+``.gitignore`` lists. Its kernels package (``src/repro_torch/kernels``) is
+loaded under another name, its library built from its four sources alone
+with its own nvcc flags, and its four wrappers (``lp_gain_cuda``,
+``contract_edges_cuda``, ``hem_propose_cuda``, ``mapcost_cuda``) are put in
+place of this checkout's in ``kernels.ops``, so an earlier design is timed
+with its own wrapper (e.g. a host-side sum of partials); everything else
+runs from this checkout. The wrappers of both must take the same
+arguments.
 
 1. Runs ``chip_smoke.py``'s mapping main path (``gen_rgg(2**20, seed=0)`` on
    4:8:6, ``SharedMapConfig()``, ``ell`` on the card) with every launch of
@@ -19,9 +23,13 @@ runs from this checkout.
    this checkout's, and requires the same ``pe_of`` from both. Prints each
    kernel's summed ms, by padded N.
 2. On the inputs this checkout's run captured at each padded N (2^20, 2^18,
-   2^15), holds both designs bitwise against the plain version and times
-   each twice, in turns (old, new, new, old), each timing the median of 20
-   event-timed runs (50 below N = 2^19) without the spin (``ms``, as
+   2^15: ``contract_edges``, ``lp_gain``, and ``hem_propose`` in matching
+   rounds 1 and 3) and on the main path's ``mapcost`` call, and for
+   ``mapcost`` also on a random mapping of the padded root graph (as
+   ``chip_smoke.py`` times it), holds both designs against the plain
+   version (bitwise; ``mapcost`` within rtol 1e-5) and times each twice,
+   in turns (old, new, new, old), each timing the median of 20 event-timed
+   runs (50 below 2^19 rows or edges) without the spin (``ms``, as
    ``chip_smoke.py``'s ``ms``) and with it (``device_ms``).
 3. Prints one JSON object as the last line and writes it to ``--out``.
 
@@ -30,7 +38,7 @@ It exits with code 2 without a CUDA device. It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import importlib
 import importlib.util
 import json
 import subprocess
@@ -39,50 +47,35 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-SOURCES = ("lp_gain.cu", "contract_edges.cu")
-ENTRIES = ("lp_gain_f32", "contract_edges_f32")
+SOURCES = ("lp_gain.cu", "contract_edges.cu", "hem_propose.cu", "mapcost.cu")
+ENTRIES = ("lp_gain_f32", "contract_edges_f32", "hem_propose_f32", "mapcost_f32")
+WRAPPERS = {"lp_gain_cuda": "lp_gain", "contract_edges_cuda": "coarsen_kernels",
+            "hem_propose_cuda": "coarsen_kernels", "mapcost_cuda": "mapcost"}
 
 
-def _load_old(old_root: Path, build_dir: Path):
-    """Build the earlier checkout's two sources into one library and bind
-    their entry points, which must take this checkout's arguments."""
-    from repro_torch.kernels import _build
-    csrc = old_root / "src/repro_torch/kernels/csrc"
+def _load_old(old_root: Path, build_dir: Path) -> dict:
+    """The earlier checkout's kernels package as ``ab_old_kernels``, its
+    library built from the four sources alone; returns its wrappers."""
+    kdir = old_root / "src/repro_torch/kernels"
     spec = importlib.util.spec_from_file_location(
-        "old_build", old_root / "src/repro_torch/kernels/_build.py")
-    old_build = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(old_build)
-    build_dir.mkdir(parents=True, exist_ok=True)
-    out = build_dir / "libold_lp_gain_contract_edges.so"
-    res = subprocess.run([_build._nvcc(), *old_build.NVCC_FLAGS, "-I", str(csrc), "-shared",
-                          *(str(csrc / s) for s in SOURCES), "-o", str(out)],
-                         capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError("nvcc failed on the old sources:\n" + res.stdout + res.stderr)
-    for line in (res.stdout + res.stderr).splitlines():
-        if any(w in line for w in ("Compiling entry", "spill", "Used")):
-            print(f"ptxas old: {line.strip()}", flush=True)
-    lib = ctypes.CDLL(str(out))
-    for name in ENTRIES:
-        if old_build._SIGNATURES[name] != _build._SIGNATURES[name]:
-            raise RuntimeError(f"the old {name} takes other arguments than this checkout's")
-        fn = getattr(lib, name)
-        fn.argtypes = old_build._SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return lib
+        "ab_old_kernels", kdir / "__init__.py", submodule_search_locations=[str(kdir)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = pkg
+    spec.loader.exec_module(pkg)
+    old_build = importlib.import_module("ab_old_kernels._build")
+    old_build.BUILD_DIR = build_dir
+    old_build._sources = lambda: [kdir / "csrc" / s for s in SOURCES]
+    old_build._SIGNATURES = {k: v for k, v in old_build._SIGNATURES.items() if k in ENTRIES}
+    old_build.library()
+    for s in SOURCES:
+        for line in old_build.ptxas_report(s):
+            print(f"ptxas old {s}: {line}", flush=True)
+    return {name: getattr(importlib.import_module(f"ab_old_kernels.{mod}"), name)
+            for name, mod in WRAPPERS.items()}
 
 
-class _Swap:
-    """Stands in for ``_build._LIB``: the two entries from ``over``, the
-    rest from ``base``."""
-
-    def __init__(self, base, over):
-        self.base, self.over = base, over
-
-    def __getattr__(self, name):
-        if name in ENTRIES:
-            return getattr(self.over, name)
-        return getattr(self.base, name)
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
 
 
 def main() -> int:
@@ -101,7 +94,7 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.core import graph as G
     from repro_torch.core.api import SharedMapConfig, shared_map
-    from repro_torch.core.hierarchy import parse_hierarchy
+    from repro_torch.core.hierarchy import _tables, parse_hierarchy
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
 
@@ -110,11 +103,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
-    new = _build.library()
-    designs = {"old": _load_old(args.old.resolve(), _build.BUILD_DIR / "ab_old"), "new": new}
+    _build.library()
+    designs = {"old": _load_old(args.old.resolve(), _build.BUILD_DIR / "ab_old"),
+               "new": {name: getattr(kops, name) for name in WRAPPERS}}
 
     def use(name):
-        _build._LIB = _Swap(new, designs[name])
+        for fn_name, fn in designs[name].items():
+            setattr(kops, fn_name, fn)
 
     g = G.gen_rgg(cs.RGG_N, seed=0, device=dev)
     h = parse_hierarchy(*cs.HIERARCHY)
@@ -145,32 +140,50 @@ def main() -> int:
         raise AssertionError("the two designs gave different pe_of on the main path")
     print("main path: the same pe_of under both designs", flush=True)
 
+    # (key, case, captured arguments, exact)
+    shapes = []
+    for n in sorted(caps["contract_edges"], reverse=True):
+        shapes.append((f"contract_edges@{n}", cs._contract_case, caps["contract_edges"][n], True))
+    for n in sorted(caps["lp_gain"], reverse=True):
+        shapes.append((f"lp_gain@{n}", cs._lp_gain_case, caps["lp_gain"][n], True))
+    for n in sorted(caps["hem_propose"], reverse=True):
+        for rnd in (1, 3):
+            shapes.append((f"hem_propose@{n}/round{rnd}", cs._hem_case,
+                           caps["hem_propose"][n][rnd - 1], True))
+    (m_args,) = caps["mapcost"].values()
+    shapes.append(("mapcost@main_path_pe_of", cs._mapcost_case, m_args, False))
+    gp = G.repad_device(g, cs.RGG_N, 1 << (int(g.m) - 1).bit_length())
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    pe_rand = torch.randint(0, h.k, (gp.N,), generator=gen, dtype=torch.int32).to(dev)
+    shapes.append(("mapcost@pe_rand", cs._mapcost_case,
+                   (gp.rows, gp.cols, gp.ewgt, pe_rand, *_tables(h, dev)), False))
+
     order = list(designs) + list(designs)[::-1]
-    for kern, case in (("contract_edges", cs._contract_case), ("lp_gain", cs._lp_gain_case)):
-        for n in sorted(caps[kern], reverse=True):
-            label, kernel, plain, kargs, nbytes, flops, _ = case(caps[kern][n])
-            bound_ms, bound_by = cs._bound(nbytes, flops)
-            want = plain(*kargs)
-            for name in designs:
-                use(name)
-                got = kernel(*kargs)
-                if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                           for a, b in zip(got, want)):
-                    raise AssertionError(f"{kern} [{name}] at {label}: not bitwise")
-            reps = 50 if n < 2**19 else 20
-            rec = {"label": label, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "ms": {k: [] for k in designs}, "device_ms": {k: [] for k in designs}}
-            for name in order:
-                use(name)
-                rec["ms"][name].append(cs._time_ms(lambda: kernel(*kargs), reps, 3))
-                rec["device_ms"][name].append(
-                    cs._time_ms(lambda: kernel(*kargs), reps, 3, pad=True))
-            result["shapes"][f"{kern}@{n}"] = rec
-            print(f"{kern} at {label}, bitwise under both designs; bound {bound_ms:.5f} ms "
-                  f"({bound_by}); ms, device_ms (two timings each): " + "; ".join(
-                      f"{k} {rec['ms'][k][0]:.5f}/{rec['ms'][k][1]:.5f}, "
-                      f"{rec['device_ms'][k][0]:.5f}/{rec['device_ms'][k][1]:.5f}"
-                      for k in designs), flush=True)
+    for key, case, cargs, exact in shapes:
+        label, kernel, plain, kargs, nbytes, flops, _ = case(cargs)
+        bound_ms, bound_by = cs._bound(nbytes, flops)
+        want = _as_tuple(plain(*kargs))
+        for name in designs:
+            use(name)
+            got = _as_tuple(kernel(*kargs))
+            ok = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) if exact
+                     else torch.allclose(a, b, rtol=1e-5, atol=0.0) for a, b in zip(got, want))
+            if not ok:
+                raise AssertionError(f"{key} [{name}] at {label}: disagrees with the plain version")
+        reps = 50 if kargs[0].shape[0] < 2**19 else 20
+        rec = {"label": label, "bound_ms": bound_ms, "bound_by": bound_by,
+               "ms": {k: [] for k in designs}, "device_ms": {k: [] for k in designs}}
+        for name in order:
+            use(name)
+            rec["ms"][name].append(cs._time_ms(lambda: kernel(*kargs), reps, 3))
+            rec["device_ms"][name].append(
+                cs._time_ms(lambda: kernel(*kargs), reps, 3, pad=True))
+        result["shapes"][key] = rec
+        print(f"{key} at {label}, {'bitwise' if exact else 'rtol 1e-5'} under both designs; "
+              f"bound {bound_ms:.5f} ms ({bound_by}); ms, device_ms (two timings each): "
+              + "; ".join(f"{k} {rec['ms'][k][0]:.5f}/{rec['ms'][k][1]:.5f}, "
+                          f"{rec['device_ms'][k][0]:.5f}/{rec['device_ms'][k][1]:.5f}"
+                          for k in designs), flush=True)
     use("new")
     line = json.dumps(result)
     if args.out:

@@ -5,21 +5,31 @@
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` and prints the build time and ptxas's
-   report (registers, shared memory, spills) for the flash, ``lp_gain``
-   and ``contract_edges`` kernels.
+   report (registers, shared memory, spills) for every kernel but
+   ``gather_rows``.
 2. Holds every kernel against its plain PyTorch version on the card, on
    inputs captured from the main path at its top-level shapes, and times
    both (CUDA events, median of several runs after a warm-up; the
    kernel also behind a spin on the card, ``device_ms``, see PAD_CYCLES);
-   ``contract_edges`` and ``lp_gain`` follow in phase 6.
+   ``contract_edges``, ``lp_gain``, ``hem_propose`` and ``mapcost`` follow
+   in phase 6 at the main path's own inputs.
 3. Runs ``shared_map`` on small unit-weight instances on the card and on
    the CPU, with the refinement backend pinned to ``ell`` and to ``xla`` on
-   both sides, and requires the same ``pe_of``.
+   both sides, and requires the same ``pe_of``; then the same instances
+   with float weights (``graph.float_weights``): two card runs give one
+   ``pe_of`` and one J, and the card's ``pe_of`` is compared with the
+   CPU's.
 4. Runs the other strategies on the card at ``gen_rgg(2**16)`` on 4:8:6:
    ``device`` equals its ``resident=False`` twin with one array fetch,
-   ``layer`` runs, ``queue`` equals ``naive``.
+   ``layer`` runs, ``queue`` equals ``naive``. The ``device`` strategy on
+   four levels (2:2:2:2), whose children at depth 3 reach the ``powf``
+   kernel, equals the CPU's on grid 32x32 and rgg 2000; the ``powf``
+   kernel is held bitwise against its plain version.
 5. Profiles the root's partition call under ``ell`` and under ``xla``
-   (device busy share, device ops, top kernels).
+   (device busy share, device ops, top kernels), each also with the
+   parent's float sums by label (``index_add_``, atomics) in place of
+   ``graph.label_sums``/``row_label_sums``, so that the cost of the
+   fixed-order sums shows.
 6. Runs the main path at a real size: ``gen_rgg(2**20, seed=0)`` on the
    hierarchy 4:8:6 with D = 1:10:100 (k = 192) and ``SharedMapConfig()``
    (``auto`` = ``ell`` on the card) and with ``xla`` pinned for comparison,
@@ -29,9 +39,11 @@
    and per padded size, the launches, the summed ms and the median ms per
    launch. It captures, at each padded size of a partition call (2^20,
    2^18, 2^15), the inputs of the first ``contract_edges`` call of the
-   first partition call there and of the last ``lp_gain`` call of the last
-   one; both kernels are held bitwise against their plain versions and
-   timed at all three.
+   first partition call there, of the last ``lp_gain`` call of the last
+   one, and of the first and third ``hem_propose`` calls (rounds 1 and 3
+   of the first coarsening level there); each is held bitwise against its
+   plain version and timed at all three. The main path's own ``mapcost``
+   call (J of the final ``pe_of``) is held and timed too.
 7. The serving path: the llama3.2 smoke config's prefill on the card
    against the CPU, then llama3.2-3b at full width (28 layers, d_model
    3072, random weights from a seeded ``torch.Generator``). ``prefill_fn`` on
@@ -54,6 +66,7 @@ exits with code 2 and prints no result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -150,12 +163,14 @@ def _timed_main_path(run, kops):
     pair reads the card's time for the launch (see PAD_CYCLES). Returns
     ``(out, times, captures)``: ``times[kernel][n]`` lists each launch's ms
     by the leading size n of its first input (the padded N for the ELL
-    kernels), and ``captures[kernel][n]`` the arguments of the first
-    ``contract_edges`` call at n (that of the first partition call there)
-    and of the last ``lp_gain`` call at n (the last partition call's; its
-    labels cloned)."""
+    kernels, M for ``mapcost``), and ``captures[kernel][n]`` the arguments
+    of the first ``contract_edges`` call at n (that of the first partition
+    call there), of the last ``lp_gain`` call at n (the last partition
+    call's; its labels cloned), of the first three ``hem_propose`` calls at
+    n (the three matching rounds of the first coarsening level there), and
+    of the last ``mapcost`` call (the J of the final mapping)."""
     import torch
-    marks, caps = [], {"contract_edges": {}, "lp_gain": {}}
+    marks, caps = [], {"contract_edges": {}, "lp_gain": {}, "hem_propose": {}, "mapcost": {}}
     saved = {name: getattr(kops, name) for name in MAPPING_KERNELS}
 
     def hook(name, orig):
@@ -165,6 +180,10 @@ def _timed_main_path(run, kops):
                 caps[name].setdefault(n, args)
             elif name == "lp_gain":
                 caps[name][n] = (args[0], args[1], args[2].clone(), args[3])
+            elif name == "hem_propose" and len(caps[name].setdefault(n, [])) < 3:
+                caps[name][n].append(args)
+            elif name == "mapcost":
+                caps[name][n] = args
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(PAD_CYCLES)
@@ -188,19 +207,22 @@ def _timed_main_path(run, kops):
     return out, times, caps
 
 
+# The cases below call each kernel's wrapper through ``kernels.ops`` at call
+# time, so that chip_kernel_ab.py can put an earlier design's wrapper there.
+
 def _contract_case(args):
     """A captured ``contract_edges`` call as ``(label, kernel, plain, args,
     bytes, operations, library)``. Bytes: each input read once, each output
     written once. Operations: what this data needs, one compare-add for
     each pair of live slots of a row."""
     import torch
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
-    from repro_torch.kernels.coarsen_kernels import contract_edges_cuda
     cand, candw = args
     N, D2 = cand.shape
     live = (cand != N).sum(1, dtype=torch.int64)
     return (f"[{N}, {D2}], {int(live.sum())} live slots",
-            lambda a, b: contract_edges_cuda(a, b, N),
+            lambda a, b: kops.contract_edges_cuda(a, b, N),
             lambda a, b: ref.contract_edges_ref(a, b, N), (cand, candw),
             16 * N * D2 + 4 * N, int((live * live).sum()), None)
 
@@ -209,19 +231,91 @@ def _lp_gain_case(args):
     """A captured ``lp_gain`` call, as :func:`_contract_case`. Operations:
     one add per live slot and restart. Library: ``scatter_add_`` of conn."""
     import torch
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
-    from repro_torch.kernels.lp_gain import lp_gain_cuda
     adj, adw, parts, k = args
     N, DEG = adj.shape
     R = parts.shape[0]
     nbr = torch.where(adj < N, parts[:, adj.clamp(0, N - 1)], 0).long()
     live = int((adj < N).sum())
     return (f"N={N} DEG={DEG} R={R} k={k}, {live} live slots",
-            lambda a, w, p: lp_gain_cuda(a, w, p, k),
+            lambda a, w, p: kops.lp_gain_cuda(a, w, p, k),
             lambda a, w, p: ref.lp_gain_ref(a, w, p, k), (adj, adw, parts),
             8 * N * DEG + 4 * R * N + R * N * (4 * k + 8), R * live,
             lambda a, w, p: torch.zeros(R, N, k, device=a.device).scatter_add_(
                 2, nbr, w.expand(R, N, DEG)))
+
+
+def _hem_case(args):
+    """A captured ``hem_propose`` call, as :func:`_contract_case`. Bytes:
+    the ids, weights and jitters of every unmatched row (a matched row
+    proposes N from its flag alone), and every row's flag and proposal.
+    Operations: one score (a multiply, an add and a fused multiply-add) per
+    valid slot."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    adj, adw, jit, matched = args
+    N, DEG = adj.shape
+    free = matched == 0
+    u = torch.arange(N, device=adj.device)[:, None]
+    valid = (free[:, None] & (adj < N) & (adj != u)
+             & (matched[adj.clamp(0, N - 1)] == 0))
+    live = int(free.sum())
+    return (f"[{N}, {DEG}], {live} unmatched rows, {int(valid.sum())} valid slots",
+            lambda *a: kops.hem_propose_cuda(*a), ref.hem_propose_ref, args,
+            12 * DEG * live + 8 * N, 4 * int(valid.sum()), None)
+
+
+def _mapcost_case(args):
+    """A ``mapcost`` call, as :func:`_contract_case`. Bytes: the three edge
+    arrays and the PE ids, each read once. Operations: a multiply and an
+    add per edge."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    rows, cols, ewgt, pe, gb, dv = args
+    M, N = rows.shape[0], pe.shape[0]
+    same = float((pe[rows.clamp(0, N - 1)] == pe[cols.clamp(0, N - 1)]).float().mean())
+    return (f"M={M}, N={N}, l={gb.shape[0]}, {same:.4f} of the edge slots within one PE",
+            lambda *a: kops.mapcost_cuda(*a), ref.mapcost_ref, args,
+            12 * M + 4 * N, 2 * M, None)
+
+
+@contextlib.contextmanager
+def _atomic_sums():
+    """Run with the parent's float sums by label, ``index_add_`` (atomics on
+    the card), in place of ``graph.label_sums`` and ``graph.row_label_sums``
+    in every module that calls them."""
+    import torch
+    from repro_torch.core import graph, initial, refine
+
+    def sums(slot, ok, w, size):   # dropped entries spread over 4096 spare slots
+        spare = size + torch.arange(slot.shape[-1], device=slot.device) % 4096
+        out = torch.zeros(size + 4096, dtype=w.dtype, device=slot.device)
+        out.index_add_(0, torch.where(ok, slot, spare).reshape(-1),
+                       w.expand(slot.shape).reshape(-1))
+        return out[:size]
+
+    def label_sums(labels, w, k):
+        R = labels.shape[0]
+        lane = torch.arange(R, device=labels.device)[:, None] * k
+        return sums(lane + labels, (labels >= 0) & (labels < k), w, R * k).view(R, k)
+
+    def row_sums(g, labels, w, k):
+        R, M = labels.shape
+        lane = torch.arange(R, device=g.device)[:, None] * (g.N * k)
+        ok = (labels >= 0) & (labels < k) & (torch.arange(M, device=g.device) < g.m)
+        return sums(lane + g.rows.long() * k + labels, ok, w, R * g.N * k).view(R, g.N, k)
+    swaps = [(graph, "label_sums", label_sums), (refine, "label_sums", label_sums),
+             (refine, "row_label_sums", row_sums), (initial, "row_label_sums", row_sums)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
 def _run_path(name, fn, expect, _build):
@@ -471,6 +565,7 @@ def main() -> int:
     import numpy as np
     from repro_torch.core import coarsen as C
     from repro_torch.core import graph as G
+    from repro_torch.core import hierarchy as H
     from repro_torch.core import multisection as MS
     from repro_torch.core.api import SharedMapConfig, shared_map, shared_map_direct
     from repro_torch.core.hierarchy import _tables, parse_hierarchy
@@ -479,7 +574,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.coarsen_kernels import hem_propose_cuda
-    from repro_torch.kernels.mapcost import mapcost_cuda
+    from repro_torch.kernels.powf import near_midpoint, powf_cuda, powf_ref
     from repro_torch.kernels.split import gather_rows_cuda
 
     dev = torch.device("cuda")
@@ -494,7 +589,8 @@ def main() -> int:
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.BUILD_SECONDS:.1f} s)", flush=True)
-    for source in ("flash_attention.cu", "lp_gain.cu", "contract_edges.cu"):
+    for source in ("flash_attention.cu", "lp_gain.cu", "contract_edges.cu", "hem_propose.cu",
+                   "mapcost.cu", "powf.cu"):
         for line in _build.ptxas_report(source):
             print(f"ptxas {source}: {line}", flush=True)
     smem = {d: _build.library().flash_attention_bf16_smem(d) for d in (64, 128, 256)}
@@ -589,21 +685,26 @@ def main() -> int:
     check("gather_rows", gather_rows_cuda, ref.gather_rows_ref, (src, idx), True,
           4 * (src.numel() + 2 * idx.numel()), 0,
           library=lambda s, i: s[i])
-    # hem_propose: the three matching rounds of the first coarsening level
+    # hem_propose: the three matching rounds of the first coarsening level,
+    # timed on the first
     for args in hem_in:
         if not torch.equal(hem_propose_cuda(*args), ref.hem_propose_ref(*args)):
             raise AssertionError("hem_propose: kernel disagrees with its plain version")
-    adj = hem_in[0][0]
-    Nh, Dh = adj.shape
-    check("hem_propose", hem_propose_cuda, ref.hem_propose_ref, hem_in[0], True,
-          12 * Nh * Dh + 8 * Nh, 4 * Nh * Dh)
+    label, kernel, plain, args, nbytes, flops, _ = _hem_case(hem_in[0])
+    check("hem_propose", kernel, plain, args, True, nbytes, flops, label=f" at {label}")
+    # mapcost on a random mapping of the root graph (no edge within one PE)
     gen = torch.Generator(device="cpu").manual_seed(0)
     pe_rand = torch.randint(0, h.k, (N0,), generator=gen, dtype=torch.int32).to(dev)
     gb, dv = _tables(h, dev)
-    check("mapcost", mapcost_cuda, ref.mapcost_ref,
-          (gp.rows, gp.cols, gp.ewgt, pe_rand, gb, dv), False,
-          12 * M0 + 4 * N0, 2 * M0, rtol=1e-5)
-    del hem_in, gat_in, src, idx, adj
+    label, kernel, plain, args, nbytes, flops, _ = _mapcost_case(
+        (gp.rows, gp.cols, gp.ewgt, pe_rand, gb, dv))
+    check("mapcost", kernel, plain, args, False, nbytes, flops, rtol=1e-5,
+          label=f" at pe_rand, {label}")
+    js = [kernel(*args) for _ in range(5)]
+    if not all(torch.equal(j.view(torch.int32), js[0].view(torch.int32)) for j in js):
+        raise AssertionError("mapcost: five runs gave more than one J")
+    print(f"mapcost: five runs on pe_rand give one J ({float(js[0])!r})", flush=True)
+    del hem_in, gat_in, src, idx, args
     torch.cuda.empty_cache()
 
     # ---- 3. small instances: the card's pe_of equals the CPU's -------------
@@ -619,10 +720,25 @@ def main() -> int:
                                      "from the CPU's")
             print(f"small {name} backend {backend}: pe_of equal on card and CPU, "
                   f"J {a.J} / {b.J}", flush=True)
+            # float weights: two card runs give one pe_of and one J
+            gf = G.float_weights(gs, seed=7)
+            a, a2 = (shared_map(gf, small_h, cfg, device=dev) for _ in range(2))
+            if not (np.array_equal(a.pe_of, a2.pe_of) and a.J == a2.J):
+                raise AssertionError(f"{name} float weights, {backend}: two card runs "
+                                     "differ")
+            b = shared_map(gf, small_h, cfg, device="cpu")
+            same = int((a.pe_of == b.pe_of).sum())
+            with _atomic_sums():   # the parent's sums, for the record
+                old = {shared_map(gf, small_h, cfg, device=dev).pe_of.tobytes()
+                       for _ in range(3)}
+            print(f"small {name} float weights backend {backend}: two card runs give one "
+                  f"pe_of and J {a.J!r}; card against CPU: pe_of equal on {same} of "
+                  f"{len(a.pe_of)} vertices, J {a.J!r} / {b.J!r}; with index_add_ (the "
+                  f"parent's sums) {len(old)} distinct pe_of in 3 card runs", flush=True)
 
     # ---- 4. the other strategies on the card, at rgg 2^16 ------------------
     gsm = G.gen_rgg(RGG_N_STRATEGIES, seed=0, device=dev)
-    every = [k for k in _build.LAUNCHES if k != "flash_attention"]   # the mapping path's
+    every = list(MAPPING_KERNELS)
     strat = {}
 
     host_split = [k for k in every if k != "gather_rows"]   # split on the host
@@ -660,6 +776,49 @@ def main() -> int:
     print("strategies: device equals its twin with one array fetch; queue equals "
           "naive equals bucket", flush=True)
     del gsm, strat
+
+    # the device strategy on four levels: its children at depth 3 reach powf
+    # on the card; card against the CPU (which equals the reference)
+    deep_h = parse_hierarchy("2:2:2:2", "1:10:100:1000")
+    deep_cfg = SharedMapConfig(strategy="device", backend="ell")
+    pow_powf = H._powf
+
+    def torch_powf(x, depth):   # the parent's card route: torch's float32 pow
+        if depth <= 2:
+            return pow_powf(x, depth)
+        return torch.pow(x, float(np.float32(1.0 / depth)))
+    for name, gs in (("grid 32x32", G.gen_grid(32, device="cpu")),
+                     ("rgg 2000", G.gen_rgg(2000, seed=3, device="cpu"))):
+        a, _, ln = _run_path(f"device strategy {name} on {deep_h}",
+                             lambda: shared_map_direct(gs, deep_h, deep_cfg, device=dev),
+                             ["powf"], _build)
+        b = shared_map_direct(gs, deep_h, deep_cfg, device="cpu")
+        if not np.array_equal(a.pe_of, b.pe_of):
+            raise AssertionError(f"device strategy, {name} on {deep_h}: the card's pe_of "
+                                 "differs from the CPU's")
+        H._powf = torch_powf
+        try:
+            old = shared_map_direct(gs, deep_h, deep_cfg, device=dev)
+        finally:
+            H._powf = pow_powf
+        print(f"device strategy {name} on {deep_h}: pe_of equal on card and CPU, "
+              f"{ln['powf']} powf launches, J {a.J} / {b.J}; with torch's pow (the "
+              f"parent's card route) pe_of equal on {int((old.pe_of == b.pe_of).sum())} "
+              f"of {len(b.pe_of)} vertices, J {old.J}", flush=True)
+    rng = np.random.default_rng(0)
+    lo, hi = (int(np.float32(v).view(np.uint32)) for v in (1.0, 8.0))
+    x = rng.integers(lo, hi, 1 << 22).astype(np.uint32).view(np.float32)
+    for d in (3, 4, 5):
+        got = powf_cuda(torch.from_numpy(x).to(dev), 1.0 / d).cpu().numpy()
+        want = powf_ref(x, 1.0 / d)
+        bad = int((got.view(np.uint32) != want.view(np.uint32)).sum())
+        if bad:
+            raise AssertionError(f"powf kernel: {bad} of {x.size} values differ at d={d}")
+        tp = torch.pow(torch.from_numpy(x).to(dev), float(np.float32(1.0 / d))).cpu().numpy()
+        print(f"powf kernel d={d}: bitwise its plain version on {x.size} float32 in "
+              f"[1, 8), {int(near_midpoint(x, 1.0 / d).sum())} of them near a rounding "
+              f"midpoint; torch's float32 pow differs from it on "
+              f"{int((tp.view(np.uint32) != want.view(np.uint32)).sum())}", flush=True)
     torch.cuda.empty_cache()
 
     # ---- 5. where the time goes: the root's partition call, profiled ------
@@ -671,23 +830,33 @@ def main() -> int:
         torch.ones(1, device=dev).add_(1)
         torch.cuda.synchronize()
     for backend, deg in (("ell", deg_root), ("xla", None)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with torch.profiler.profile(activities=acts) as prof:
-            partition(gp, top, 0.03, lv, "eco", 0, backend, deg, device=dev)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in events)
-        print(f"profile: root partition call (N={N0}, M={M0}, k={top}, {lv} levels, "
-              f"eco, {backend}, cap {deg}): wall {wall:.2f} s under the profiler, "
-              f"device busy {busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f}%), "
-              f"{sum(e.count for e in events)} device ops", flush=True)
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-            print(f"profile:   {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d}x  "
-                  f"{e.key[:90]}", flush=True)
-        del prof, events
+        parts = {}
+        for sums, ctx in (("fixed-order label sums", contextlib.nullcontext),
+                          ("index_add_ (the parent's)", _atomic_sums)):
+            with ctx():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.profiler.profile(activities=acts) as prof:
+                    parts[sums] = partition(gp, top, 0.03, lv, "eco", 0, backend, deg,
+                                            device=dev)
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_us = sum(e.self_device_time_total for e in events)
+            print(f"profile: root partition call (N={N0}, M={M0}, k={top}, {lv} levels, "
+                  f"eco, {backend}, cap {deg}), sums by {sums}: wall {wall:.2f} s under the "
+                  f"profiler, device busy {busy_us / 1e6:.3f} s "
+                  f"({100 * busy_us / 1e6 / wall:.1f}%), {sum(e.count for e in events)} "
+                  f"device ops", flush=True)
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+                print(f"profile:   {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d}x  "
+                      f"{e.key[:90]}", flush=True)
+            del prof, events
+        a, b = parts.values()
+        print(f"profile: root partition call, {backend}: the two sums give "
+              f"{'the same' if torch.equal(a, b) else 'another'} partition (unit weights: "
+              f"every sum exact)", flush=True)
 
     # ---- 6. the main path at a real size, and xla pinned, in turns ---------
     def main_path(cfg):
@@ -764,7 +933,24 @@ def main() -> int:
                 kernel_ms=row["ms"], device_ms=row["device_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 plain_ms=row["plain_ms"], library_ms=row["library_ms"])
-    del g, gp, res, res2, res_x, res_x2, out_t, times, caps
+    # hem_propose in rounds 1 and 3 of the first coarsening level at each N
+    # (the line's row is phase 2's, the root's round 1)
+    for n in sorted(caps["hem_propose"], reverse=True):
+        calls = caps["hem_propose"][n]
+        for rnd in (1, 3):
+            label, kernel, plain, args, nbytes, flops, _ = _hem_case(calls[rnd - 1])
+            row = check("hem_propose", kernel, plain, args, True, nbytes, flops,
+                        record=False, label=f" round {rnd} at {label}")
+            by_n["hem_propose"][str(n)][f"round{rnd}"] = {
+                k: row[k] for k in ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms")}
+    # mapcost on the main path's own final pe_of
+    (m_args,) = caps["mapcost"].values()
+    label, kernel, plain, args, nbytes, flops, _ = _mapcost_case(m_args)
+    mapcost_main = check("mapcost", kernel, plain, args, False, nbytes, flops, rtol=1e-5,
+                         record=False, label=f" at the main path's pe_of, {label}")
+    if float(kernel(*args)) != out_t[0].J:
+        raise AssertionError("mapcost at the main path's pe_of gives another J")
+    del g, gp, res, res2, res_x, res_x2, out_t, times, caps, m_args, args
     torch.cuda.empty_cache()
 
     # ---- 7. the serving path: llama3.2-3b at full width ---------------------
@@ -778,6 +964,9 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
         r["main_path_ms"] = sum(d["ms"] for d in by_n[r["name"]].values())
         r["by_n"] = by_n[r["name"]]
+        if r["name"] == "mapcost":
+            r["at_main_path_pe_of"] = {k: mapcost_main[k] for k in (
+                "ms", "device_ms", "bound_ms", "bound_by", "plain_ms", "max_abs_err")}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

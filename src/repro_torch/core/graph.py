@@ -165,6 +165,64 @@ def vertex_mask(g: Graph) -> torch.Tensor:
     return torch.arange(g.N, dtype=I32, device=g.device) < g.n
 
 
+def label_sums(labels: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
+    """[R, k]: for each row r of ``labels`` [R, L], the sum of the weights
+    ``w`` ([L] or [R, L]) of the entries labelled b, for b in [0, k);
+    entries labelled outside [0, k) add nothing.
+
+    On the CPU each sum runs in entry order (``index_add_``), the
+    reference's order: XLA's CPU scatter applies its updates in order. On
+    the card ``index_add_`` would add floats with atomics, in whatever order
+    the threads arrive; there each sum is a reduction of the masked
+    [R, k, L] weights, whose order the shape fixes. Exact, and equal to the
+    CPU's, while the weights are integers below 2^24.
+    """
+    if labels.device.type == "cuda":
+        b = torch.arange(k, dtype=labels.dtype, device=labels.device)[None, :, None]
+        return torch.where(labels[:, None, :] == b, w.expand(labels.shape)[:, None, :],
+                           0.0).sum(-1)
+    return _label_sums_in_order(labels, w, k)
+
+
+def _label_sums_in_order(labels: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
+    """:func:`label_sums` by ``index_add_`` (entry order on the CPU)."""
+    R = labels.shape[0]
+    lane = torch.arange(R, device=labels.device)[:, None] * k
+    flat = torch.where((labels >= 0) & (labels < k), lane + labels, R * k)
+    out = torch.zeros(R * k + 1, dtype=w.dtype, device=labels.device)
+    out.index_add_(0, flat.reshape(-1), w.expand(labels.shape).reshape(-1))
+    return out[: R * k].view(R, k)
+
+
+def row_label_sums(g: Graph, labels: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
+    """[R, N, k]: for each vertex u of ``g`` and row r of the edge labels
+    ``labels`` [R, M], the weights ``w`` [M] of u's edges labelled b, for b
+    in [0, k), added in CSR order; edges labelled outside [0, k) and the
+    padding edges (past ``indptr[N]``) add nothing.
+
+    One segmented sum over the CSR rows, each sum a loop in edge order on
+    either device: the reference's order, so float weights give the
+    reference's bits on the card too (``index_add_`` would add them with
+    atomics there).
+    """
+    R, M = labels.shape
+    b = torch.arange(k, dtype=labels.dtype, device=labels.device)
+    vals = torch.where(labels.T[:, :, None] == b, w[:, None, None], 0.0).reshape(M, R * k)
+    out = torch.segment_reduce(vals, "sum", offsets=g.indptr, axis=0, unsafe=True)
+    return out.view(g.N, R, k).permute(1, 0, 2).contiguous()
+
+
+def row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``cumsum`` along the last axis of a 2-D ``x``, in an order fixed by
+    its shape. On the card torch scans the rows of a tensor of several rows
+    with a fixed tree each, but the single row of a ``[1, L]`` tensor with
+    a one-pass look-back scan whose float order changes from run to run; a
+    single row is therefore scanned beside a row of zeros."""
+    if x.device.type == "cuda" and x.shape[0] == 1:
+        return torch.cumsum(torch.cat([x, torch.zeros_like(x)]), dim=-1)[:1]
+    return torch.cumsum(x, dim=-1)
+
+
 def edge_cut(g: Graph, part: torch.Tensor) -> torch.Tensor:
     """Total weight of cut edges (each undirected edge counted once)."""
     cut = (part[g.rows] != part[g.cols]) & edge_mask(g)
@@ -174,7 +232,7 @@ def edge_cut(g: Graph, part: torch.Tensor) -> torch.Tensor:
 def block_weights(g: Graph, part: torch.Tensor, k: int) -> torch.Tensor:
     """[k] f32 total vertex weight per block (padding contributes 0)."""
     safe = torch.where(vertex_mask(g), part, 0)
-    return torch.zeros(k, dtype=F32, device=g.device).index_add_(0, safe, g.vwgt)
+    return label_sums(safe[None], g.vwgt, k)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +327,23 @@ def gen_kron(scale: int, edge_factor: int = 8, seed: int = 0, device=None) -> Gr
         v |= vbit << bit
     keep = u != v
     return from_edges(n, u[keep], v[keep], device=device)
+
+
+def float_weights(g: Graph, seed: int = 0) -> Graph:
+    """``g`` with every real vertex weight and every undirected edge weight
+    (both directions alike) multiplied by a seeded uniform float32 in
+    [0.5, 1.5): a float-weighted variant of an instance, on ``g``'s device."""
+    n, m = int(g.n), int(g.m)
+    rng = np.random.default_rng(seed)
+    r, c = g.rows[:m].cpu().numpy(), g.cols[:m].cpu().numpy()
+    _, pair = np.unique(np.minimum(r, c).astype(np.int64) * max(n, 1) + np.maximum(r, c),
+                        return_inverse=True)
+    fv = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    fe = rng.uniform(0.5, 1.5, int(pair.max()) + 1 if m else 0).astype(np.float32)[pair]
+    vwgt, ewgt = g.vwgt.clone(), g.ewgt.clone()
+    vwgt[:n] *= torch.from_numpy(fv).to(g.device)
+    ewgt[:m] *= torch.from_numpy(fe).to(g.device)
+    return g._replace(vwgt=vwgt, ewgt=ewgt)
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +446,7 @@ def split_blocks(g: Graph, part: torch.Tensor, orig: torch.Tensor, k: int,
     cindptr = torch.cat([torch.searchsorted(crows, probe, out_int32=True),
                          ecounts[:, None]], dim=1)
 
-    wsum = torch.zeros(k + 1, dtype=F32, device=dev).index_add_(0, blk, g.vwgt)[:k]
+    wsum = label_sums(blk[None], g.vwgt, k)[0]
     children = Graph(vwgt=cvwgt, rows=crows, cols=ccols, ewgt=cewgt,
                      indptr=cindptr, n=counts, m=ecounts)
     return children, corig, wsum

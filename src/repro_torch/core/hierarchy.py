@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from ..kernels import ops as kops
+
 
 @dataclasses.dataclass(frozen=True)
 class Hierarchy:
@@ -85,25 +87,17 @@ def _powf(x: torch.Tensor, depth: int) -> torch.Tensor:
     torch's own float32 ``pow`` and, on the CPU, its float32 ``sqrt`` round
     differently in a few cases in a thousand (ROADMAP.md, Queue 3). The
     port takes the square root in float64 (exact before the one rounding
-    to float32) and on the CPU calls ``powf`` itself, one value at a time
-    (a level has at most a few hundred). On the card it uses torch's
-    ``pow``, so that the ``device`` strategy never fetches weights; the
-    device path and its host twin share this function and so its bits.
+    to float32), and reproduces the C library's ``powf`` bit for bit with
+    ``kernels.ops.powf`` (its numpy plain version on the CPU, a kernel on
+    the card), so that the ``device`` strategy computes its eps on the
+    card without fetching weights and still matches the reference.
     """
     if depth == 1:
         return x
     if depth == 2:
         return torch.sqrt(x.double()).float()
     e = float(torch.tensor(1.0 / depth, dtype=torch.float32))
-    if x.device.type != "cpu":
-        return torch.pow(x, e)
-    import ctypes
-    import ctypes.util
-    libm = ctypes.CDLL(ctypes.util.find_library("m"))
-    libm.powf.restype = ctypes.c_float
-    libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
-    vals = [libm.powf(v, e) for v in x.reshape(-1).tolist()]
-    return torch.tensor(vals, dtype=torch.float32).reshape(x.shape)
+    return kops.powf(x.contiguous(), e)
 
 
 def adaptive_epsilon_tensor(eps: float, total_weight: torch.Tensor,

@@ -10,9 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from .graph import F32, I32, Graph, edge_mask, vertex_mask
-from .refine import (_TRASH, _admit_by_argsort, _lane_block_weights, _lookup, _vhash,
-                     _vhashes, lp_refine, rebalance)
+from .graph import I32, Graph, label_sums, row_cumsum, row_label_sums, vertex_mask
+from .refine import _admit_by_argsort, _lookup, _vhash, _vhashes, lp_refine, rebalance
 
 
 def initial_partition(g: Graph, k: int, Lmax: torch.Tensor, salt=0,
@@ -22,10 +21,9 @@ def initial_partition(g: Graph, k: int, Lmax: torch.Tensor, salt=0,
     (the restarts of a partition call, run as a leading batch dimension)."""
     salts = [int(s) for s in salt] if isinstance(salt, (list, tuple)) else [int(salt)]
     R = len(salts)
-    N, M = g.N, g.M
+    N = g.N
     dev = g.device
     vmask = vertex_mask(g)
-    emask = edge_mask(g)
     n = torch.clamp(g.n, min=1)
 
     # --- seeds: k index-strided real vertices, hash-rotated by salt --------
@@ -38,16 +36,9 @@ def initial_partition(g: Graph, k: int, Lmax: torch.Tensor, salt=0,
     part = torch.where(vmask, part, k)
 
     # --- greedy growth -------------------------------------------------------
-    lane = torch.arange(R, device=dev)[:, None] * (N * (k + 1))
-    trash = R * N * (k + 1) + torch.arange(M, device=dev) % _TRASH
-    w = torch.where(emask, g.ewgt, 0.0).expand(R, M).reshape(-1)
     for _ in range(grow_rounds):
         assigned = part < k
-        pc = part[:, g.cols]
-        pcols = torch.where(emask & (pc < k), pc, k)
-        flat = torch.where(emask, lane + g.rows.long() * (k + 1) + pcols, trash)
-        conn = torch.zeros(R * N * (k + 1) + _TRASH, dtype=F32, device=dev).index_add_(
-            0, flat.reshape(-1), w)[: R * N * (k + 1)].view(R, N, k + 1)[..., :k]
+        conn = row_label_sums(g, part[:, g.cols], g.ewgt, k)   # unassigned (k) adds nothing
         W = _assigned_weights(g, part, assigned, vmask, k)
         fits = (W[:, None, :] + g.vwgt[None, :, None]) <= Lmax
         score = torch.where(fits, conn, float("-inf"))
@@ -64,7 +55,7 @@ def initial_partition(g: Graph, k: int, Lmax: torch.Tensor, salt=0,
         W = _assigned_weights(g, part, assigned, vmask, k)
         lightest = torch.argmin(W, dim=-1).to(I32)[:, None]
         todo = vmask & ~assigned
-        w_cum = torch.cumsum(torch.where(todo, g.vwgt, 0.0), dim=-1)
+        w_cum = row_cumsum(torch.where(todo, g.vwgt, 0.0))
         Wl = _lookup(W, lightest)
         ok = todo & ((Wl + w_cum) <= torch.maximum(Lmax, Wl + g.vwgt))
         part = torch.where(ok, lightest, part)
@@ -84,5 +75,5 @@ def initial_partition(g: Graph, k: int, Lmax: torch.Tensor, salt=0,
 
 def _assigned_weights(g: Graph, part, assigned, vmask, k: int) -> torch.Tensor:
     """[R, k] vertex weight already assigned to each block."""
-    return _lane_block_weights(torch.where(assigned & vmask, g.vwgt, 0.0),
-                               torch.where(assigned, part, 0), k)
+    return label_sums(torch.where(assigned, part, 0),
+                      torch.where(assigned & vmask, g.vwgt, 0.0), k)

@@ -21,23 +21,25 @@ Backends, as in the reference, selected per call with ``backend=``:
   reference picks ``"ell"`` wherever its kernels are live, and the port's
   kernels are live exactly on the card.
 
-Sums of float weights go through ``index_add_``/``cumsum``, which on the
-card use atomics and parallel scans: their results are exact, and equal to
-the reference's, while all weights are integers below 2^24.
+Sums of float weights by label go through ``graph.label_sums`` and
+``graph.row_label_sums``, whose order is fixed on the card too (no
+atomics). They are exact, and equal to the reference's, while all weights
+are integers below 2^24; with other float weights the card's block sums
+may round apart from the CPU's (ROADMAP.md, Queue 3), but two runs on one
+device agree.
 """
 from __future__ import annotations
 
 import torch
 
-from .graph import (F32, I32, Graph, block_weights, default_ell_deg, edge_mask,
-                    ell_adjacency, vertex_mask)
+from .graph import (F32, I32, Graph, block_weights, default_ell_deg,
+                    ell_adjacency, label_sums, row_label_sums, vertex_mask)
 from ..kernels import ops as kops
 
 _NEG = -1e30
 _THRESHOLD_ITERS = 24   # bisection resolution: max_gain * 2^-24
 _TIE_JITTER = 1e-3      # relative per-vertex jitter splitting gain ties
 _MASK32 = 0xFFFFFFFF
-_TRASH = 4096   # spare slots that padding edges scatter into (see connectivity)
 
 
 def _u32(x: int) -> int:
@@ -80,23 +82,9 @@ def resolve_backend(backend: str, device) -> str:
 
 def connectivity(g: Graph, part: torch.Tensor, k: int) -> torch.Tensor:
     """conn[r, u, b] = summed weight of edges from u into block b under the
-    labelling ``part[r]``.  [R, N, k] for ``part`` [R, N].
-
-    Padding edges add weight 0; they are sent to spare slots past the end
-    (cut off after the sum) so that on the card they do not pile atomics
-    onto the one slot of their anchor row. The sums are unchanged.
-    """
-    R = part.shape[0]
-    N, M = g.N, g.M
-    emask = edge_mask(g)
-    pcols = torch.where(emask, part[:, g.cols], 0)
-    lane = torch.arange(R, device=g.device)[:, None] * (N * k)
-    trash = R * N * k + torch.arange(M, device=g.device) % _TRASH
-    flat = torch.where(emask, lane + g.rows.long() * k + pcols, trash)
-    w = torch.where(emask, g.ewgt, 0.0).expand(R, M)
-    out = torch.zeros(R * N * k + _TRASH, dtype=F32, device=g.device)
-    out.index_add_(0, flat.reshape(-1), w.reshape(-1))
-    return out[: R * N * k].view(R, N, k)
+    labelling ``part[r]``, added in edge order.  [R, N, k] for ``part``
+    [R, N]. Padding edges lie past the last CSR row and add nothing."""
+    return row_label_sums(g, part[:, g.cols], g.ewgt, k)
 
 
 def _make_conn_of(g: Graph, k: int, backend: str, ell_deg: int | None):
@@ -118,18 +106,9 @@ def _make_conn_of(g: Graph, k: int, backend: str, ell_deg: int | None):
     return (lambda parts: kops.lp_gain(adj, adw, parts, k)[0]), overflow
 
 
-def _lane_block_weights(w: torch.Tensor, part: torch.Tensor, k: int) -> torch.Tensor:
-    """[R, k] sums of the weights ``w`` ([N] or [R, N]) per block of each
-    labelling ``part`` [R, N]."""
-    R = part.shape[0]
-    flat = torch.arange(R, device=part.device)[:, None] * k + part
-    out = torch.zeros(R * k, dtype=F32, device=part.device)
-    return out.index_add_(0, flat.reshape(-1), w.expand(part.shape).reshape(-1)).view(R, k)
-
-
 def batched_block_weights(g: Graph, part: torch.Tensor, k: int) -> torch.Tensor:
     """[R, k] :func:`block_weights` of each labelling ``part`` [R, N]."""
-    return _lane_block_weights(g.vwgt, torch.where(vertex_mask(g), part, 0), k)
+    return label_sums(torch.where(vertex_mask(g), part, 0), g.vwgt, k)
 
 
 def _pick(mat: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
@@ -176,28 +155,22 @@ def _admit_by_threshold(cand, best, gbest, vw, cap, k: int, tiebreak,
     raised by a relative ``_TIE_JITTER * tiebreak`` so that an equal-gain
     group is admitted in part (in hash order), not all or nothing.
 
-    The inflow sums are ``index_add_`` into [R, k]. Entries that are not
-    admitted at a threshold go, with their weight, to spare slots past the
-    end that are cut off: each slot's sum has the same addends in the same
-    order as a masked sum, and on the card the zeros of a masked sum do
-    not pile atomics onto one block's slot. Non-candidates carry a gain of
-    -inf, so no threshold (all are >= 0) admits them.
+    The inflow sums are label sums into [R, k] in which the entries not
+    admitted at a threshold carry no label: each block's sum has the same
+    addends in the same order as a masked sum. Non-candidates carry a gain
+    of -inf, so no threshold (all are >= 0) admits them.
     """
     R, N = cand.shape
     dev = cand.device
     gbest = gbest * (1.0 + _TIE_JITTER * tiebreak)
     safe_best = torch.where(cand, best, 0).long()
     gcand = torch.where(cand, gbest, float("-inf"))
-    w_cand = torch.where(cand, vw, 0.0).reshape(-1)
+    w_cand = torch.where(cand, vw, 0.0)
     cap = cap.clamp(min=0.0)
-    flat = torch.arange(R, device=dev)[:, None] * k + safe_best
-    trash = R * k + torch.arange(N, device=dev) % _TRASH
-    out = torch.empty(R * k + _TRASH, dtype=F32, device=dev)
 
     def inflow(t):
-        idx = torch.where(gcand >= t.gather(1, safe_best), flat, trash)
-        out.zero_().index_add_(0, idx.reshape(-1), w_cand)
-        return out[: R * k].view(R, k)
+        return label_sums(torch.where(gcand >= t.gather(1, safe_best), safe_best, -1),
+                          w_cand, k)
 
     hi0 = torch.where(cand, gbest, 0.0).max(dim=1).values + 1.0
     lo = torch.zeros(R, k, dtype=F32, device=dev)

@@ -45,7 +45,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel, and nowhere else (chip_smoke.py resets and reads them).
 LAUNCHES: dict[str, int] = {"gather_rows": 0, "hem_propose": 0,
                             "contract_edges": 0, "mapcost": 0, "lp_gain": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "powf": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,8 +56,8 @@ _SIGNATURES = {
     "hem_propose_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
     # (cand, candw, nbr, w, cnt, N, D2, sent, stream)
     "contract_edges_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # (rows, cols, ewgt, pe, g_below, dvec, partial, M, N, l, blocks, stream)
-    "mapcost_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (rows, cols, ewgt, pe, g_below, dvec, scratch, arrived, M, N, l, blocks, stream)
+    "mapcost_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (adj, adw, part, conn, best, gain, N, DEG, k, R, stream)
     "lp_gain_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (q, k, v, o, B, S, H, Hkv, D, scale, causal, window, stream)
@@ -65,6 +65,8 @@ _SIGNATURES = {
     "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     # (D) -> dynamic shared memory bytes of one block
     "flash_attention_bf16_smem": [_I],
+    # (x, out, tables, n, y, stream)
+    "powf_f32": [_P, _P, _P, _I, ctypes.c_float, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -16,7 +16,7 @@ import torch
 
 from . import _build
 
-MAX_DEG = 64   # one warp per row, two slots per lane
+MAX_DEG = 64   # the ELL width the kernels take (contract_edges: 2 * MAX_DEG)
 
 
 def hem_propose_cuda(adj, adw, jit, matched) -> torch.Tensor:

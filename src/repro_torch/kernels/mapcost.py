@@ -1,11 +1,12 @@
 """CUDA kernel for J(C, D, Pi), the communication cost of a mapping.
 
 Launches ``csrc/mapcost.cu`` (which replaces the TPU kernel
-``repro/kernels/mapcost.py:mapcost_pallas``): one f32 partial per thread
-block, summed and halved here, as the TPU wrapper summed its per-tile
-partials. The order of the sum differs from the plain version
-(``kernels/ref.py:mapcost_ref``), so the two agree within a relative
-tolerance, and exactly when all partial sums are integers below 2^24.
+``repro/kernels/mapcost.py:mapcost_pallas``): one launch computes J, the
+blocks' partials added by the last block in block order, so nothing is
+summed here and one input gives one J run after run. The order of the sum
+differs from the plain version (``kernels/ref.py:mapcost_ref``), so the two
+agree within a relative tolerance, and exactly when all partial sums are
+integers below 2^24.
 """
 from __future__ import annotations
 
@@ -29,9 +30,10 @@ def mapcost_cuda(rows, cols, ewgt, pe_of, g_below, dvec) -> torch.Tensor:
         raise ValueError("mapcost: rows/cols/ewgt must share M, g_below/dvec "
                          "must share l, and pe_of must be non-empty")
     blocks = max(1, min(MAX_BLOCKS, (M + THREADS - 1) // THREADS))
-    partial = torch.empty(blocks, dtype=torch.float32, device=rows.device)
+    # the blocks' partials, then J, then the arrival counter (zero)
+    scratch = torch.zeros(blocks + 2, dtype=torch.float32, device=rows.device)
     _build.launch("mapcost", "mapcost_f32", rows.device, rows.data_ptr(),
                   cols.data_ptr(), ewgt.data_ptr(), pe_of.data_ptr(),
-                  g_below.data_ptr(), dvec.data_ptr(), partial.data_ptr(),
-                  M, N, l, blocks)
-    return partial.sum() / 2.0
+                  g_below.data_ptr(), dvec.data_ptr(), scratch.data_ptr(),
+                  scratch.data_ptr() + 4 * (blocks + 1), M, N, l, blocks)
+    return scratch[blocks]

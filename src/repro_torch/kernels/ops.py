@@ -14,6 +14,7 @@ from .coarsen_kernels import contract_edges_cuda, hem_propose_cuda
 from .flashattn import flash_attention_cuda
 from .lp_gain import lp_gain_cuda
 from .mapcost import mapcost_cuda
+from .powf import powf_cuda, powf_ref
 from .split import gather_rows_cuda
 
 
@@ -71,3 +72,11 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0) -> torch.Tens
     if _on_cuda(q):
         return flash_attention_cuda(q, k, v, causal, window)
     return ref.flash_bshd_ref(q, k, v, causal, window)
+
+
+def powf(x: torch.Tensor, y: float) -> torch.Tensor:
+    """The C library's ``powf(x, y)`` elementwise on f32 ``x``, ``0 < y < 1``,
+    bit for bit (the reference's XLA program calls it on the CPU)."""
+    if _on_cuda(x):
+        return powf_cuda(x, y)
+    return torch.from_numpy(powf_ref(x.numpy(), y)).reshape(x.shape)

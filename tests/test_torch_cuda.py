@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.core import graph as G
-from repro_torch.core.api import SharedMapConfig, shared_map
+from repro_torch.core.api import SharedMapConfig, shared_map, shared_map_direct
 from repro_torch.core.coarsen import _edge_jitter, contract_candidates, hem_match_ell
 from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.kernels import _build, ops, ref
@@ -19,6 +19,7 @@ from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose
 from repro_torch.kernels.flashattn import flash_attention_cuda
 from repro_torch.kernels.lp_gain import lp_gain_cuda
 from repro_torch.kernels.mapcost import mapcost_cuda
+from repro_torch.kernels.powf import near_midpoint, powf_cuda, powf_ref
 from repro_torch.kernels.split import gather_rows_cuda
 
 pytestmark = pytest.mark.cuda
@@ -85,6 +86,174 @@ def test_mapcost_rtol(cuda, ell):
     got = float(mapcost_cuda(g.rows, g.cols, w, pe, gb, dv))
     want = float(ref.mapcost_ref(g.rows, g.cols, w, pe, gb, dv))
     assert got == pytest.approx(want, rel=1e-5)
+
+
+def _hem_inputs(N, DEG, share, padding, seed):
+    """ELL rows for hem_propose: ids in [0, N) with some self-loops, padding
+    ids (N, and above N) at random slots (``"mid"``) or at the end of each
+    row (``"end"``, as ``ell_adjacency`` lays them out); weights and
+    jitters from small sets, so many scores tie and the smallest id decides;
+    ``share`` of the rows matched."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    adj = torch.randint(0, N, (N, DEG), generator=gen, dtype=torch.int32)
+    adj = torch.where(torch.rand(N, DEG, generator=gen) < 0.05,
+                      torch.arange(N, dtype=torch.int32)[:, None], adj)
+    if padding == "mid":
+        adj[torch.rand(N, DEG, generator=gen) < 0.3] = N
+        adj[torch.rand(N, DEG, generator=gen) < 0.1] = N + 5
+    else:
+        live = torch.randint(0, DEG + 1, (N, 1), generator=gen)
+        adj = torch.where(torch.arange(DEG)[None] < live, adj, torch.full_like(adj, N))
+    adw = torch.where(adj < N, torch.randint(1, 4, (N, DEG), generator=gen).float(), 0.0)
+    jit = torch.randint(0, 3, (N, DEG), generator=gen).float() / 2
+    matched = (torch.rand(N, generator=gen) < share).to(torch.int32)
+    return adj, adw, jit, matched
+
+
+@pytest.mark.parametrize("share", [0.0, 0.5, 0.99, 1.0])
+@pytest.mark.parametrize("DEG", [1, 24, 31, 32, 33, 64])
+def test_hem_propose_cases(cuda, DEG, share):
+    """Bitwise against the plain version: padding slots mid-row and at the
+    ends, shares of matched rows from none to all, N = 1000 (not a multiple
+    of a block's 128 rows)."""
+    for padding in ("mid", "end"):
+        args = [x.to(cuda) for x in _hem_inputs(1000, DEG, share, padding, seed=DEG)]
+        got = hem_propose_cuda(*args)
+        assert torch.equal(got, ref.hem_propose_ref(*args))
+        if share == 1.0:
+            assert torch.equal(got, torch.full_like(got, 1000))
+
+
+@pytest.mark.parametrize("N", [1, 31, 127, 129, 4097, 150_001])
+def test_hem_propose_ragged_n_and_real_jitter(cuda, N):
+    """Ragged N, and the main path's scores: DEG 24, rows padded at their
+    ends, the edge jitter of the first matching round, float weights."""
+    adj, adw, _, matched = (x.to(cuda) for x in _hem_inputs(N, 24, 0.3, "end", seed=N))
+    adw = adw * torch.rand(adw.shape, device=cuda)
+    u2d = torch.arange(N, dtype=torch.int32, device=cuda)[:, None].expand(adj.shape)
+    jit = _edge_jitter(u2d, adj, 13)
+    assert torch.equal(hem_propose_cuda(adj, adw, jit, matched),
+                       ref.hem_propose_ref(adj, adw, jit, matched))
+
+
+def _mapcost_inputs(cuda, M, N, pe_hi, seed):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    rows = torch.randint(-2, N + 2, (M + 3,), generator=gen, dtype=torch.int32)
+    cols = torch.randint(-2, N + 2, (M + 3,), generator=gen, dtype=torch.int32)
+    w = torch.rand(M + 3, generator=gen) * 4
+    pe = torch.randint(0, pe_hi, (N,), generator=gen, dtype=torch.int32)
+    return rows.to(cuda), cols.to(cuda), w.to(cuda), pe.to(cuda)
+
+
+@pytest.mark.parametrize("M,offset", [(1 << 20, 0), (1 << 20, 1), (100_003, 0), (100_003, 3), (5, 0)])
+@pytest.mark.parametrize("levels", ["4:8:6", "3:65537:7"])
+def test_mapcost_one_j_within_rtol(cuda, M, offset, levels):
+    """J within rtol 1e-5 of the plain version and bitwise one value over
+    five runs; edge arrays 16-byte aligned or not (offset), M a multiple of
+    4 or not, out-of-range endpoints clamped; group sizes that are not
+    powers of two, with PE ids up to 2^31 - 1."""
+    a = [int(x) for x in levels.split(":")]
+    g_below = torch.tensor([1, a[0], a[0] * a[1]], dtype=torch.int32, device=cuda)
+    dv = torch.tensor([1.0, 10.0, 100.0], device=cuda)
+    pe_hi = 192 if levels == "4:8:6" else 2**31 - 1
+    rows, cols, w, pe = _mapcost_inputs(cuda, M, 5000, pe_hi, seed=M + offset)
+    args = (rows[offset:offset + M], cols[offset:offset + M], w[offset:offset + M], pe,
+            g_below, dv)
+    runs = [mapcost_cuda(*args) for _ in range(5)]
+    assert all(torch.equal(r.view(torch.int32), runs[0].view(torch.int32)) for r in runs)
+    assert float(runs[0]) == pytest.approx(float(ref.mapcost_ref(*args)), rel=1e-5)
+
+
+def test_powf_kernel_bitwise(cuda):
+    """The powf kernel against its plain version: float32 in [1, 8), the
+    inputs there near a rounding midpoint, and random bit patterns."""
+    rng = np.random.default_rng(0)
+    lo, hi = (int(np.float32(v).view(np.uint32)) for v in (1.0, 8.0))
+    x = rng.integers(lo, hi, 1 << 20).astype(np.uint32).view(np.float32)
+    for d in (3, 4, 5, 7):
+        y = 1.0 / d
+        xs = np.concatenate([x, x[near_midpoint(x, y)],
+                             rng.integers(0, 2**32, 1 << 16).astype(np.uint32).view(np.float32)])
+        got = powf_cuda(torch.from_numpy(xs).to(cuda), y).cpu().numpy()
+        want = powf_ref(xs, y)
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+        ok = ~np.isnan(want)
+        assert np.array_equal(got[ok].view(np.uint32), want[ok].view(np.uint32)), d
+
+
+@pytest.mark.parametrize("gen", ["grid", "rgg"])
+def test_device_strategy_depth3_card_equals_cpu(cuda, gen):
+    """The device strategy computes every level's eps on the card; on four
+    levels its children at depth 3 reach powf (the kernel launches), and
+    its pe_of equals the CPU's, which equals the reference's
+    (tests/test_torch_strategies.py)."""
+    g = G.gen_grid(32, device="cpu") if gen == "grid" else G.gen_rgg(2000, seed=3, device="cpu")
+    h = Hierarchy((2, 2, 2, 2), (1.0, 10.0, 100.0, 1000.0))
+    cfg = SharedMapConfig(strategy="device", backend="ell")
+    _build.reset_launches()
+    on_card = shared_map_direct(g, h, cfg, device=cuda)
+    assert _build.LAUNCHES["powf"] > 0
+    on_cpu = shared_map_direct(g, h, cfg, device="cpu")
+    assert np.array_equal(on_card.pe_of, on_cpu.pe_of)
+
+
+@pytest.mark.parametrize("weights", ["integer", "float"])
+def test_label_sums_fixed_order(cuda, weights):
+    """graph.label_sums on the card: one result over five runs; the CPU's
+    (entry order) on integer weights. On float weights each of the 2^17
+    addends a sum takes rounds apart in the two orders; the card's tree is
+    held within rtol 1e-5 of the float64 sum (a tree of depth 20 errs by
+    at most about 20 float32 roundings)."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    labels = torch.randint(-1, 9, (3, 1 << 20), generator=gen, dtype=torch.int32)
+    w = torch.randint(1, 50, (1 << 20,), generator=gen).float()
+    if weights == "float":
+        w = w * torch.rand(1 << 20, generator=gen)
+    runs = [G.label_sums(labels.to(cuda), w.to(cuda), 8) for _ in range(5)]
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    if weights == "integer":
+        assert torch.equal(runs[0].cpu(), G.label_sums(labels, w, 8))
+    else:
+        exact = G.label_sums(labels, w.double(), 8)
+        torch.testing.assert_close(runs[0].cpu().double(), exact, rtol=1e-5, atol=0.0)
+
+
+def test_row_cumsum_fixed_order(cuda):
+    """graph.row_cumsum of a single row on the card (the one-restart
+    presets' leftover sweep): one result over five runs."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    x = (torch.rand(1, 1 << 20, generator=gen) * 3).to(cuda)
+    runs = [G.row_cumsum(x) for _ in range(5)]
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    torch.testing.assert_close(runs[0].double().cpu(), torch.cumsum(x.double().cpu(), -1),
+                               rtol=1e-5, atol=0.0)
+
+
+def test_row_label_sums_card_equals_cpu(cuda):
+    """graph.row_label_sums adds each (row, label) in edge order on both
+    devices: float weights give the CPU's bits on the card."""
+    g = G.float_weights(G.gen_rgg(20000, seed=4, device="cpu"), seed=1)
+    g = G.pad_graph(g, 1 << 15, 1 << 18)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    part = torch.randint(0, 6, (2, g.N), generator=gen, dtype=torch.int32)
+    want = G.row_label_sums(g, part[:, g.cols], g.ewgt, 6)
+    gc = g.to(cuda)
+    got = G.row_label_sums(gc, part.to(cuda)[:, gc.cols], gc.ewgt, 6)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("backend", ["ell", "xla"])
+@pytest.mark.parametrize("gen", ["grid", "rgg"])
+def test_float_weights_twice_on_the_card(cuda, gen, backend):
+    """Float vertex and edge weights (graph.float_weights): two card runs
+    give one pe_of and one J, the card's equals the CPU's."""
+    g = G.float_weights(G.gen_grid(32, device="cpu") if gen == "grid"
+                        else G.gen_rgg(2000, seed=3, device="cpu"), seed=7)
+    h = Hierarchy((4, 2), (1.0, 10.0))
+    cfg = SharedMapConfig(backend=backend)
+    a, b = (shared_map(g, h, cfg, device=cuda) for _ in range(2))
+    assert np.array_equal(a.pe_of, b.pe_of) and a.J == b.J
+    assert np.array_equal(a.pe_of, shared_map(g, h, cfg, device="cpu").pe_of)
 
 
 def test_wrappers_count_launches_and_reject_cpu(cuda, ell):
@@ -245,7 +414,7 @@ def test_shared_map_card_equals_cpu(cuda, gen, backend):
     _build.reset_launches()
     on_card = shared_map(g, h, SharedMapConfig(backend=backend), device=cuda)
     used = {k for k, v in _build.LAUNCHES.items() if v > 0}
-    mapping = set(_build.LAUNCHES) - {"flash_attention"}   # the model path's kernel
+    mapping = set(_build.LAUNCHES) - {"flash_attention", "powf"}   # not on this path
     assert used == mapping - ({"lp_gain"} if backend == "xla" else set())
     on_cpu = shared_map(g, h, SharedMapConfig(backend=backend), device="cpu")
     assert np.array_equal(on_card.pe_of, on_cpu.pe_of)

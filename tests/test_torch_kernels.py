@@ -24,6 +24,7 @@ from repro_torch.kernels.coarsen_kernels import contract_edges_cuda, hem_propose
 from repro_torch.kernels.flashattn import flash_attention_cuda
 from repro_torch.kernels.lp_gain import lp_gain_cuda
 from repro_torch.kernels.mapcost import mapcost_cuda
+from repro_torch.kernels.powf import fma_f64, libm_powf, near_midpoint, powf_cuda, powf_ref
 from repro_torch.kernels.split import gather_rows_cuda
 
 T = torch.from_numpy
@@ -211,6 +212,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         mapcost_cuda(x, x, f, x, x[:1], f[:1])
     with pytest.raises(ValueError):
         lp_gain_cuda(x[None], f[None], x[:1], 2)
+    with pytest.raises(ValueError):
+        powf_cuda(f, 1.0 / 3.0)
 
 
 def test_flash_routes_cpu_to_plain_and_wrapper_refuses_cpu():
@@ -224,6 +227,58 @@ def test_flash_routes_cpu_to_plain_and_wrapper_refuses_cpu():
     assert torch.equal(got, ref.flash_bshd_ref(q, k, v, True, 5))
     with pytest.raises(ValueError):
         flash_attention_cuda(q, k, v)
+
+
+@pytest.mark.parametrize("d", [3, 4, 5])
+def test_powf_ref_matches_the_c_library(d):
+    """The plain version of the powf kernel against the C library's
+    ``powf`` (through ctypes, as the reference's XLA program calls it) at
+    y = float32(1/d): a seeded sample of 2^16 float32 in [1, 8), and every
+    input there whose exact power lies near a float32 rounding midpoint,
+    a set that holds every input on which the library and the correctly
+    rounded value lie apart. Every float32 in [1, 8) was held once by
+    ``python -m repro_torch.kernels.powf`` (0 mismatches at d = 3, 4, 5)."""
+    y = float(np.float32(1.0 / d))
+    lo, hi = (int(np.float32(v).view(np.uint32)) for v in (1.0, 8.0))
+    rng = np.random.default_rng(d)
+    parts = [rng.integers(lo, hi, 1 << 16).astype(np.uint32).view(np.float32)]
+    for a in range(lo, hi, 1 << 22):
+        x = np.arange(a, min(a + (1 << 22), hi), dtype=np.uint32).view(np.float32)
+        parts.append(x[near_midpoint(x, y)])
+    x = np.concatenate(parts)
+    assert x.size > (1 << 16) + 90000
+    assert np.array_equal(powf_ref(x, y).view(np.uint32), libm_powf(x, y).view(np.uint32))
+
+
+@pytest.mark.parametrize("d", [3, 7])
+def test_powf_ref_any_float32(d):
+    """Random bit patterns (negative, subnormal, huge, NaN) and the special
+    values take the C library's branches too; ``ops.powf`` on the CPU is
+    the plain version."""
+    rng = np.random.default_rng(10 + d)
+    x = np.concatenate([rng.integers(0, 2**32, 1 << 15).astype(np.uint32).view(np.float32),
+                        np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, 1e-40,
+                                  -1e-40, -2.0, 3.4e38], np.float32)])
+    got, want = powf_ref(x, 1.0 / d), libm_powf(x, 1.0 / d)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    ok = ~np.isnan(want)
+    assert np.array_equal(got[ok].view(np.uint32), want[ok].view(np.uint32))
+    t = T(x[ok][:999].reshape(27, 37))
+    assert torch.equal(ops.powf(t, 1.0 / d), T(powf_ref(t.numpy(), 1.0 / d)).reshape(27, 37))
+
+
+def test_fma_f64_rounds_once():
+    """``fma_f64`` against the C library's ``fma``, with near cancellations."""
+    import ctypes
+    import ctypes.util
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.fma.restype = ctypes.c_double
+    libm.fma.argtypes = [ctypes.c_double] * 3
+    rng = np.random.default_rng(3)
+    a, b, c = rng.standard_normal((3, 20000)) * np.exp2(rng.integers(-40, 40, (3, 20000)))
+    c = np.where(rng.random(20000) < 0.5, -(a * b) * (1 + 1e-13 * rng.standard_normal(20000)), c)
+    want = np.array([libm.fma(*v) for v in zip(a.tolist(), b.tolist(), c.tolist())])
+    assert np.array_equal(fma_f64(a, b, c), want)
 
 
 def test_port_imports_no_jax_and_no_repro():
