@@ -33,18 +33,35 @@
 6. Runs the main path at a real size: ``gen_rgg(2**20, seed=0)`` on the
    hierarchy 4:8:6 with D = 1:10:100 (k = 192) and ``SharedMapConfig()``
    (``auto`` = ``ell`` on the card) and with ``xla`` pinned for comparison,
-   twice each in turns (ell, xla, xla, ell). Every path reads the launch
-   counts around its run. A fifth run under ``ell`` puts a CUDA event pair
-   around every launch of the five mapping kernels and prints, per kernel
-   and per padded size, the launches, the summed ms and the median ms per
-   launch. It captures, at each padded size of a partition call (2^20,
-   2^18, 2^15), the inputs of the first ``contract_edges`` call of the
-   first partition call there, of the last ``lp_gain`` call of the last
-   one, and of the first and third ``hem_propose`` calls (rounds 1 and 3
-   of the first coarsening level there); each is held bitwise against its
-   plain version and timed at all three. The main path's own ``mapcost``
+   twice each in turns (ell, xla, xla, ell); the second ``ell`` run is fed
+   the graph's ``TaskGraph`` (its fingerprint and the seconds of
+   ``from_graph`` and ``to_graph`` are printed). Its canonical CSR orders
+   each row's neighbours otherwise than ``gen_rgg``'s, so its ``pe_of`` is
+   held against the fifth run's, on that CSR as a ``Graph``. Every path
+   reads the launch counts around its run. The fifth run, under ``ell``,
+   puts a CUDA event pair around every launch of the five mapping kernels
+   and prints, per kernel and per padded size, the launches, the summed ms
+   and the median ms per launch. It captures, at each padded size of a
+   partition call (2^20, 2^18, 2^15), the inputs of the first
+   ``contract_edges`` call of the first partition call there, of the last
+   ``lp_gain`` call of the last one, and of the first and third
+   ``hem_propose`` calls (rounds 1 and 3 of the first coarsening level
+   there); each is held bitwise against its plain version and timed at all
+   three. The main path's own ``mapcost``
    call (J of the final ``pe_of``) is held and timed too.
-7. The serving path: the llama3.2 smoke config's prefill on the card
+7. The paper's quality comparison (the JAX package's
+   ``benchmarks/run.py:quality_profiles``): on the small instances of
+   phase 3 under ``ell`` and ``xla`` pinned, ``shared_map`` of a
+   ``TaskGraph``, ``refine_mapping=True``, ``global_multisection``,
+   ``kaffpa_map_style`` and ``greedy_baseline`` give the card's ``pe_of``
+   equal to the CPU's, dtype included. At the main path's size under the
+   default config: ``refine_mapping`` (J not above SharedMap's; the host
+   seconds of ``quotient_matrix`` and ``swap_refine`` at k = 192), GM,
+   ``random_mapping``, ``greedy_baseline``, and ``kaffpa_map_style`` on
+   4:8:4 (k = 128) beside SharedMap there; GM and KaFFPa-map must launch
+   all five mapping kernels. One line per algorithm: wall seconds, J, and
+   J over SharedMap's.
+8. The serving path: the llama3.2 smoke config's prefill on the card
    against the CPU, then llama3.2-3b at full width (28 layers, d_model
    3072, random weights from a seeded ``torch.Generator``). ``prefill_fn`` on
    B = 4 x S = 4096 tokens (the ``prefill_32k`` cell cut to fit the smoke's
@@ -58,7 +75,7 @@
    on the q [B, S, H, D] and k/v [B, S, Hkv, D] of layer 0 of that prefill,
    as the model hands them over, and on small shapes: f32, and bf16 at D
    12, 64 and 256 with three query heads per KV head.
-8. Prints one JSON line with every kernel's numbers, then the contract's
+9. Prints one JSON line with every kernel's numbers, then the contract's
    last line. Any failed check raises, and the script exits non-zero.
 
 It needs a CUDA device and the repository's ``src/``; without either it
@@ -347,7 +364,7 @@ def _flash_pairs(S: int, causal: bool, window: int) -> int:
 
 
 def _serving_path(dev, check, _build) -> int:
-    """Phase 7: llama3.2-3b prefill (flash and _sdpa), the Engine, a profile
+    """Phase 8: llama3.2-3b prefill (flash and _sdpa), the Engine, a profile
     and the flash kernel against its plain version. Returns the flash
     launches of one full-width prefill."""
     import numpy as np
@@ -552,6 +569,120 @@ def _serving_path(dev, check, _build) -> int:
     return ln_f["flash_attention"]
 
 
+QUALITY = ("shared_map(tg)", "refine_mapping", "global_multisection", "kaffpa_map_style",
+           "random_mapping", "greedy_baseline")
+KAFFPA_HIERARCHY = ("4:8:4", "1:10:100")   # k = 128: the nearest paper hierarchy with k = 2^j
+
+
+def _quality_run(alg, g, h, device, backend="auto"):
+    """One algorithm of the paper's quality comparison (the JAX package's
+    ``benchmarks/run.py:quality_profiles``) on ``device``: ``(result, pe_of,
+    J)``. ``g`` is a Graph, or a TaskGraph for the two SharedMap runs."""
+    from repro_torch.core import baselines as B
+    from repro_torch.core.api import SharedMapConfig, shared_map
+    from repro_torch.core.mapping import evaluate_J
+    from repro_torch.core.taskgraph import TaskGraph
+    if alg in ("shared_map(tg)", "refine_mapping"):
+        tg = g if isinstance(g, TaskGraph) else TaskGraph.from_graph(g)
+        cfg = SharedMapConfig(backend=backend, refine_mapping=alg == "refine_mapping")
+        r = shared_map(tg, h, cfg, device=device)
+        return r, r.pe_of, r.J
+    if alg in ("random_mapping", "greedy_baseline"):
+        pe = getattr(B, alg)(g, h, device=device)
+        return None, pe, evaluate_J(g, h, pe, device=device)
+    r = getattr(B, alg)(g, h, backend=backend, device=device)
+    return r, r.pe_of, r.stats["J_after_refine"]
+
+
+def _quality_small(dev) -> None:
+    """Phase 7a: the quality comparison on the small instances of phase 3,
+    card against CPU with the backend pinned on both sides: the same
+    ``pe_of``, dtype included, and J within ``mapcost``'s rtol."""
+    import numpy as np
+    from repro_torch.core import graph as G
+    from repro_torch.core.hierarchy import parse_hierarchy
+    small_h = parse_hierarchy("4:2", "1:10")
+    for name, gs in (("grid 32x32", G.gen_grid(32, device="cpu")),
+                     ("rgg 2000", G.gen_rgg(2000, seed=3, device="cpu"))):
+        for backend in ("ell", "xla"):
+            for alg in QUALITY:
+                if alg == "random_mapping":
+                    continue   # host numpy only
+                t0 = time.perf_counter()
+                _, pa, ja = _quality_run(alg, gs, small_h, dev, backend)
+                t_card = time.perf_counter() - t0
+                _, pb, jb = _quality_run(alg, gs, small_h, "cpu", backend)
+                if pa.dtype != pb.dtype or not np.array_equal(pa, pb):
+                    raise AssertionError(f"quality, small {name} {backend} {alg}: the card's "
+                                         f"pe_of ({pa.dtype}) differs from the CPU's "
+                                         f"({pb.dtype})")
+                if abs(ja - jb) > 1e-5 * abs(jb):
+                    raise AssertionError(f"quality, small {name} {backend} {alg}: J {ja} on "
+                                         f"the card, {jb} on the CPU")
+                print(f"quality, small {name} on {small_h}, backend {backend}, {alg}: pe_of "
+                      f"({pa.dtype}) equal on card and CPU, J {ja!r} / {jb!r}, card "
+                      f"{t_card:.2f} s", flush=True)
+
+
+def _quality_main(dev, g, tg, gt, h, res_sm, t_sm, every, _build) -> None:
+    """Phase 7b: the quality comparison at the main path's size. SharedMap's
+    run is phase 6's on the TaskGraph (``res_sm``, ``t_sm`` seconds); the
+    baselines run on its CSR ``gt``; KaFFPa-map needs k = 2^j, so it runs on
+    4:8:4 beside a SharedMap run there."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hierarchy import parse_hierarchy
+    from repro_torch.core.mapping import quotient_matrix, swap_refine
+    n = int(g.n)
+    table = [("shared_map(tg)", h, t_sm, res_sm.J, res_sm.J, None)]
+
+    def run(alg, graph, hh, expect):
+        (r, pe, j), sec, ln = _run_path(f"quality {alg}", lambda: _quality_run(alg, graph, hh, dev),
+                                        expect, _build)
+        if pe.shape != (n,) or pe.min() < 0 or pe.max() >= hh.k:
+            raise AssertionError(f"quality {alg}: pe_of out of range")
+        return r, pe, j, sec, ln
+
+    r, pe, j, sec, ln = run("refine_mapping", tg, h, every)
+    if not (r.stats.get("refined") and pe.dtype == np.int32):
+        raise AssertionError("refine_mapping: not refined, or pe_of not int32")
+    if j > res_sm.J:
+        raise AssertionError(f"refine_mapping: J {j} above SharedMap's {res_sm.J}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    C = quotient_matrix(gt, res_sm.pe_of, h.k)
+    t_q = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perm = swap_refine(C, h, np.arange(h.k, dtype=np.int32), seed=0)
+    t_s = time.perf_counter() - t0
+    if not np.array_equal(perm[res_sm.pe_of], pe):   # the same multisection, then the swaps
+        raise AssertionError("refine_mapping: not SharedMap's pe_of under the swap pass")
+    print(f"quality: host numpy at k={h.k} on SharedMap's partition: quotient_matrix "
+          f"{t_q:.3f} s ({int(g.m)} directed edges), swap_refine {t_s:.3f} s, "
+          f"{int((perm != np.arange(h.k)).sum())} PEs moved", flush=True)
+    table.append(("refine_mapping", h, sec, j, res_sm.J, ln))
+    r, pe, j, sec, ln = run("global_multisection", gt, h, every)
+    if r.stats["backend"] != "ell" or pe.dtype != np.int64:
+        raise AssertionError(f"global_multisection: backend {r.stats['backend']!r}, "
+                             f"pe_of {pe.dtype}")
+    print(f"quality global_multisection: J before the swaps {r.stats['J_before_refine']}, "
+          f"after {r.stats['J_after_refine']}, partition calls {r.stats['partition_calls']}",
+          flush=True)
+    table.append(("global_multisection", h, sec, j, res_sm.J, ln))
+    for alg in ("random_mapping", "greedy_baseline"):
+        _, pe, j, sec, ln = run(alg, gt, h, [])
+        table.append((alg, h, sec, j, res_sm.J, ln))
+    h4 = parse_hierarchy(*KAFFPA_HIERARCHY)
+    _, _, j4, sec4, ln4 = run("shared_map(tg)", tg, h4, every)
+    table.append(("shared_map(tg)", h4, sec4, j4, j4, ln4))
+    r, pe, j, sec, ln = run("kaffpa_map_style", gt, h4, every)
+    table.append(("kaffpa_map_style", h4, sec, j, j4, ln))
+    for alg, hh, sec, j, j_sm, ln in table:
+        print(f"quality rgg n={n} on {hh}, default config (ell on the card): {alg} "
+              f"{sec:.2f} s, J {j!r}, J over SharedMap's {j / j_sm:.4f}"
+              + (f", launches {ln}" if ln else ""), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -571,6 +702,7 @@ def main() -> int:
     from repro_torch.core.hierarchy import _tables, parse_hierarchy
     from repro_torch.core.mapping import evaluate_J
     from repro_torch.core.partition import num_levels, partition
+    from repro_torch.core.taskgraph import TaskGraph
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.coarsen_kernels import hem_propose_cuda
@@ -859,10 +991,28 @@ def main() -> int:
               f"every sum exact)", flush=True)
 
     # ---- 6. the main path at a real size, and xla pinned, in turns ---------
-    def main_path(cfg):
+    # The second ell run takes the graph as a TaskGraph: its canonical CSR
+    # holds the same edges as gen_rgg's, each row's neighbours in another
+    # order, so its pe_of is compared with the fifth run's, on that CSR as
+    # a Graph.
+    t0 = time.perf_counter()
+    tg = TaskGraph.from_graph(g)
+    t_from = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gt = tg.to_graph(device=dev)
+    torch.cuda.synchronize()
+    t_to = time.perf_counter() - t0
+    differ = [f for f, a, b in zip(G.Graph._fields, g, gt) if not torch.equal(a, b)]
+    print(f"TaskGraph of rgg n={n}: {tg.m} undirected edges, fingerprint "
+          f"{tg.fingerprint().hex()}, from_graph {t_from:.3f} s, to_graph on the card "
+          f"{t_to:.3f} s; fields of its CSR that differ from gen_rgg's: {differ}",
+          flush=True)
+
+    def main_path(cfg, graph=g):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        out = shared_map(g, h, cfg, device=dev)
+        out = shared_map(graph, h, cfg, device=dev)
         return out, torch.cuda.max_memory_allocated()
     no_lp = [k for k in every if k != "lp_gain"]
     (res, peak), t_first, launches = _run_path(
@@ -873,7 +1023,8 @@ def main() -> int:
         "xla pinned, second run", lambda: main_path(SharedMapConfig(backend="xla")),
         no_lp, _build)
     (res2, _), t_second, _ = _run_path(
-        "main path, second run", lambda: main_path(SharedMapConfig()), every, _build)
+        "main path, second run, fed the TaskGraph", lambda: main_path(SharedMapConfig(), tg),
+        every, _build)
     pe = res.pe_of
     rng = np.random.default_rng(0)
     j_rand = evaluate_J(g, h, rng.integers(0, h.k, n).astype(np.int32), device=dev)
@@ -881,7 +1032,8 @@ def main() -> int:
     for label, r, t1, t2, pk, ln in (("main path", res, t_first, t_second, peak, launches),
                                      ("xla pinned", res_x, t_xla, t_xla2, peak_x, launches_x)):
         bw = np.bincount(r.pe_of, weights=wv, minlength=h.k)
-        print(f"{label} rgg n={n} on {h}: first {t1:.2f} s, second {t2:.2f} s, backend "
+        print(f"{label} rgg n={n} on {h}: first {t1:.2f} s, second {t2:.2f} s"
+              f"{' (the TaskGraph)' if r is res else ''}, backend "
               f"{r.stats['backend']}, J {r.J}, J random {j_rand}, max/avg block "
               f"weight {bw.max() / bw.mean():.4f}, peak memory {pk} B, partition "
               f"calls {r.stats['partition_calls']}, launches {ln}", flush=True)
@@ -894,20 +1046,23 @@ def main() -> int:
         raise AssertionError(f"backend {res_x.stats['backend']!r}, expected 'xla'")
     if pe.shape != (n,) or pe.min() < 0 or pe.max() >= h.k:
         raise AssertionError("pe_of out of range")
-    if not (np.array_equal(pe, res2.pe_of) and np.array_equal(res_x.pe_of, res_x2.pe_of)):
+    if not np.array_equal(res_x.pe_of, res_x2.pe_of):
         raise AssertionError("two runs of one path gave different pe_of")
-    for r in (res, res_x):
+    for r in (res, res2, res_x):
         if not r.J < j_rand:
             raise AssertionError(f"J {r.J} not below the random mapping's {j_rand}")
+    print(f"main path: the TaskGraph's run J {res2.J} against gen_rgg's Graph's {res.J}, "
+          f"pe_of equal on {int((res2.pe_of == pe).sum())} of {n} vertices", flush=True)
 
-    # every launch of the mapping kernels timed, in a fifth run under ell;
-    # contract_edges and lp_gain held and timed at the captured shapes
+    # every launch of the mapping kernels timed, in a fifth run under ell, on
+    # the TaskGraph's CSR as a Graph; contract_edges and lp_gain held and
+    # timed at the captured shapes
     (out_t, times, caps), t_timed, launches_t = _run_path(
         "main path, every launch timed",
-        lambda: _timed_main_path(lambda: main_path(SharedMapConfig()), kops), every,
+        lambda: _timed_main_path(lambda: main_path(SharedMapConfig(), gt), kops), every,
         _build)
-    if not np.array_equal(out_t[0].pe_of, pe):
-        raise AssertionError("the timed main path gave another pe_of")
+    if not np.array_equal(out_t[0].pe_of, res2.pe_of):
+        raise AssertionError("shared_map of the TaskGraph and of its Graph gave other pe_of")
     by_n = {}
     for name in MAPPING_KERNELS:
         per = times.get(name, {})
@@ -922,7 +1077,8 @@ def main() -> int:
                   f"n={n}: {d['launches']} launches, {d['ms']:.4f} ms, median "
                   f"{d['ms_per_launch']:.5f} ms" for n, d in by_n[name].items()), flush=True)
     print(f"main path, every launch timed: {t_timed:.2f} s end to end (with the "
-          f"events' host cost), pe_of equal to the first run's", flush=True)
+          f"events' host cost), on the TaskGraph's CSR as a Graph: pe_of equal to the "
+          f"TaskGraph run's", flush=True)
     for name, case in (("contract_edges", _contract_case), ("lp_gain", _lp_gain_case)):
         top_n = max(caps[name])
         for n in sorted(caps[name], reverse=True):   # the root's shape joins the line
@@ -950,13 +1106,19 @@ def main() -> int:
                          record=False, label=f" at the main path's pe_of, {label}")
     if float(kernel(*args)) != out_t[0].J:
         raise AssertionError("mapcost at the main path's pe_of gives another J")
-    del g, gp, res, res2, res_x, res_x2, out_t, times, caps, m_args, args
+    del gp, res, res_x, res_x2, out_t, times, caps, m_args, args
     torch.cuda.empty_cache()
 
-    # ---- 7. the serving path: llama3.2-3b at full width ---------------------
+    # ---- 7. the paper's quality comparison ---------------------------------
+    _quality_small(dev)
+    _quality_main(dev, g, tg, gt, h, res2, t_second, every, _build)
+    del g, gt, tg, res2
+    torch.cuda.empty_cache()
+
+    # ---- 8. the serving path: llama3.2-3b at full width ---------------------
     flash_launches = _serving_path(dev, check, _build)
 
-    # ---- 8. the kernels line and the contract's last line -------------------
+    # ---- 9. the kernels line and the contract's last line -------------------
     for r in rows:
         if r["name"] == "flash_attention":
             r["launches"] = flash_launches

@@ -3,6 +3,7 @@
 >>> from repro_torch.core.api import shared_map, SharedMapConfig
 >>> res = shared_map(graph, hierarchy)          # on the card
 >>> res = shared_map(graph, hierarchy, device="cpu")
+>>> res = shared_map(TaskGraph.from_graph(graph), hierarchy, device="cpu")
 >>> res.pe_of, res.J
 """
 from __future__ import annotations
@@ -13,8 +14,9 @@ import numpy as np
 
 from .graph import Graph, resolve_device
 from .hierarchy import Hierarchy
-from .mapping import evaluate_J
+from .mapping import evaluate_J, quotient_matrix, swap_refine
 from .multisection import hierarchical_multisection
+from .taskgraph import TaskGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +33,9 @@ class SharedMapConfig:
     # ("ell" = the lp_gain kernel over the padded [N, DEG] adjacency;
     #  "auto" picks it on the card and "xla" on the CPU.)
     coarsen_telemetry: bool = False  # not ported yet: raises when set
-    refine_mapping: bool = False     # not ported yet: raises when set
+    refine_mapping: bool = False  # optional block<->PE swap pass. The paper's
+    # SharedMap has none (§6.4); it evens the comparison against GM, which
+    # refines (DESIGN.md §2.3).
 
 
 @dataclasses.dataclass
@@ -41,17 +45,20 @@ class SharedMapResult:
     stats: dict
 
 
-def shared_map(g: Graph, h: Hierarchy, config: SharedMapConfig | None = None,
+def shared_map(g: Graph | TaskGraph, h: Hierarchy, config: SharedMapConfig | None = None,
                device=None) -> SharedMapResult:
     """Solve GPMP for communication graph ``g`` on hierarchy ``h``.
 
-    ``g`` is moved to ``device`` (``None`` = the card, which must exist;
-    pass ``device="cpu"`` to run the plain versions on the CPU).
+    ``g`` is a padded-CSR :class:`Graph`, moved to ``device`` (``None`` =
+    the card, which must exist; pass ``device="cpu"`` to run the plain
+    versions on the CPU), or a :class:`TaskGraph`, lowered through its
+    memoized ``to_graph(device=...)``: ``shared_map(tg)`` and
+    ``shared_map(tg.to_graph())`` give the same result bit for bit.
     """
     return shared_map_direct(g, h, config or SharedMapConfig(), device=device)
 
 
-def shared_map_direct(g: Graph, h: Hierarchy, cfg: SharedMapConfig,
+def shared_map_direct(g: Graph | TaskGraph, h: Hierarchy, cfg: SharedMapConfig,
                       checkpoint=None, resident=None, device=None) -> SharedMapResult:
     """The in-process path. ``checkpoint`` (optional zero-arg callable) is
     called between multisection levels; raising inside it aborts the run.
@@ -61,7 +68,7 @@ def shared_map_direct(g: Graph, h: Hierarchy, cfg: SharedMapConfig,
         raise NotImplementedError("coarsen_telemetry is not ported yet "
                                   "(ROADMAP.md, Queue 1, item 6)")
     dev = resolve_device(device)
-    g = g.to(dev)
+    g = g.to_graph(device=dev) if isinstance(g, TaskGraph) else g.to(dev)
     res = hierarchical_multisection(
         g, h, eps=cfg.eps, preset=cfg.preset, strategy=cfg.strategy,
         seed=cfg.seed, adaptive=cfg.adaptive, backend=cfg.backend,
@@ -73,9 +80,12 @@ def shared_map_direct(g: Graph, h: Hierarchy, cfg: SharedMapConfig,
 
 def finalize_mapping(g: Graph, h: Hierarchy, cfg: SharedMapConfig,
                      pe_of: np.ndarray, stats: dict) -> np.ndarray:
-    """The post-multisection step. The optional block<->PE swap pass
-    (``refine_mapping=True``) waits for a later slice."""
+    """The post-multisection step: the optional block<->PE swap pass on the
+    host (``quotient_matrix`` fetches the graph's edges once). The result
+    stays int32, as the multisection's ``pe_of`` is."""
     if cfg.refine_mapping:
-        raise NotImplementedError("refine_mapping is not ported yet "
-                                  "(ROADMAP.md, Queue 1, item 7)")
+        C = quotient_matrix(g, pe_of, h.k)
+        perm = swap_refine(C, h, np.arange(h.k, dtype=np.int32), seed=cfg.seed)
+        pe_of = perm[pe_of].astype(np.int32, copy=False)
+        stats["refined"] = True
     return pe_of

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..kernels import ops as kops
@@ -39,6 +40,25 @@ class Hierarchy:
     def strides(self) -> tuple[int, ...]:
         """strides[i] = number of PEs inside one level-i group = a_1*...*a_i."""
         return tuple(math.prod(self.a[: i + 1]) for i in range(self.l))
+
+    def digits(self, pe: np.ndarray) -> np.ndarray:
+        """Mixed-radix digits of PE ids, innermost first: [*, l] (host numpy)."""
+        pe = np.asarray(pe)
+        out = np.zeros(pe.shape + (self.l,), np.int64)
+        rest = pe.copy()
+        for i, ai in enumerate(self.a):
+            out[..., i] = rest % ai
+            rest //= ai
+        return out
+
+    def distance_table(self) -> np.ndarray:
+        """[k, k] float64 distance matrix D (host numpy; for the mapping
+        phase's dense routines and tests)."""
+        dig = self.digits(np.arange(self.k))                  # [k, l]
+        diff = dig[:, None, :] != dig[None, :, :]             # [k, k, l]
+        lvl = np.where(diff.any(-1), self.l - 1 - np.argmax(diff[:, :, ::-1], axis=-1), -1)
+        dvec = np.asarray(self.d)
+        return np.where(lvl >= 0, dvec[np.clip(lvl, 0, self.l - 1)], 0.0)
 
     def __str__(self):
         return "H=" + ":".join(map(str, self.a)) + " D=" + ":".join(f"{x:g}" for x in self.d)

@@ -1,1 +1,2 @@
-"""Serving on the port: the KV-cache engine."""
+"""Serving on the port: the KV-cache engine, and the mapping service's leaf
+modules (trackers, admission control, the crash-safe result store)."""

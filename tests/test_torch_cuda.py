@@ -421,6 +421,62 @@ def test_shared_map_card_equals_cpu(cuda, gen, backend):
     assert on_card.J == pytest.approx(on_cpu.J, rel=1e-6)
 
 
+QUALITY = ["shared_map(tg)", "refine_mapping", "global_multisection", "kaffpa_map_style",
+           "greedy_baseline"]
+
+
+def _quality_run(alg, g, h, backend, device):
+    """One algorithm of the paper's quality comparison, as ``(pe_of, J)``."""
+    from repro_torch.core import baselines as B
+    from repro_torch.core.mapping import evaluate_J
+    from repro_torch.core.taskgraph import TaskGraph
+    if alg in ("shared_map(tg)", "refine_mapping"):
+        cfg = SharedMapConfig(backend=backend, refine_mapping=alg == "refine_mapping")
+        r = shared_map(TaskGraph.from_graph(g), h, cfg, device=device)
+        return r.pe_of, r.J
+    if alg == "greedy_baseline":
+        pe = B.greedy_baseline(g, h, device=device)
+        return pe, evaluate_J(g, h, pe, device=device)
+    r = getattr(B, alg)(g, h, backend=backend, device=device)
+    return r.pe_of, r.stats["J_after_refine"]
+
+
+@pytest.mark.parametrize("alg", QUALITY)
+@pytest.mark.parametrize("backend", ["ell", "xla"])
+@pytest.mark.parametrize("gen", ["grid", "rgg"])
+def test_quality_comparison_card_equals_cpu(cuda, gen, backend, alg):
+    """The baselines and refine_mapping on the card against the CPU, the
+    refinement backend pinned on both sides: the same pe_of, dtype
+    included; J within mapcost's rtol."""
+    g = G.gen_grid(32, device="cpu") if gen == "grid" else G.gen_rgg(2000, seed=3, device="cpu")
+    h = Hierarchy((4, 2), (1.0, 10.0))
+    _build.reset_launches()
+    pe_card, j_card = _quality_run(alg, g, h, backend, cuda)
+    if alg in ("global_multisection", "kaffpa_map_style"):
+        used = {k for k, v in _build.LAUNCHES.items() if v > 0}
+        mapping = set(_build.LAUNCHES) - {"flash_attention", "powf"}
+        assert used == mapping - ({"lp_gain"} if backend == "xla" else set())
+    pe_cpu, j_cpu = _quality_run(alg, g, h, backend, "cpu")
+    assert pe_card.dtype == pe_cpu.dtype and np.array_equal(pe_card, pe_cpu)
+    assert j_card == pytest.approx(j_cpu, rel=1e-5)
+
+
+@pytest.mark.parametrize("gen", ["grid", "rgg", "rgg-float"])
+def test_taskgraph_to_graph_on_the_card_bitwise(cuda, gen):
+    from repro_torch.core.taskgraph import TaskGraph
+    g = G.gen_grid(32, device="cpu") if gen == "grid" else G.gen_rgg(2000, seed=3, device="cpu")
+    if gen == "rgg-float":
+        g = G.float_weights(g, seed=7)
+    tg = TaskGraph.from_graph(g.to(cuda))
+    assert tg.fingerprint() == TaskGraph.from_graph(g).fingerprint()
+    on_card, on_cpu = tg.to_graph(device=cuda), tg.to_graph(device="cpu")
+    assert on_card.device.type == "cuda" and on_cpu.device.type == "cpu"
+    assert tg.to_graph(device=cuda) is on_card and tg.to_graph(device="cpu") is on_cpu
+    for f in G.Graph._fields:
+        a, b = getattr(on_card, f).cpu(), getattr(on_cpu, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+
+
 def test_auto_is_ell_on_the_card(cuda):
     g = G.gen_grid(16, device="cpu")
     res = shared_map(g, Hierarchy((2, 2), (1.0, 10.0)), SharedMapConfig(), device=cuda)

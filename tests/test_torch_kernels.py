@@ -284,7 +284,9 @@ def test_fma_f64_rounds_once():
 def test_port_imports_no_jax_and_no_repro():
     code = ("import sys, repro_torch.core.api, repro_torch.kernels.ops, "
             "repro_torch.models.model, repro_torch.models.convert, "
-            "repro_torch.serve.engine, repro_torch.configs.registry; "
+            "repro_torch.serve.engine, repro_torch.configs.registry, "
+            "repro_torch.core.baselines, repro_torch.core.taskgraph, repro_torch.faults, "
+            "repro_torch.serve.tracker, repro_torch.serve.admission, repro_torch.serve.store; "
             "[repro_torch.configs.registry.get_config(a) for a in "
             "repro_torch.configs.registry.ARCHS]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "

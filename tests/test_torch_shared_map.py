@@ -90,16 +90,18 @@ def test_hierarchy_helpers():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"strategy": "layer", "refine_mapping": True}, NotImplementedError),
+    ({"strategy": "layer", "coarsen_telemetry": True}, NotImplementedError),
     ({"strategy": "queue", "coarsen_telemetry": True}, NotImplementedError),
     ({"strategy": "nope"}, ValueError),
-    ({"backend": "ell", "strategy": "naive", "refine_mapping": True}, NotImplementedError),
-    ({"refine_mapping": True}, NotImplementedError),
+    ({"backend": "ell", "strategy": "naive", "coarsen_telemetry": True}, NotImplementedError),
+    ({"refine_mapping": True, "coarsen_telemetry": True}, NotImplementedError),
     ({"coarsen_telemetry": True}, NotImplementedError),
 ])
 def test_parts_not_in_this_slice_raise(kw, exc):
-    """Every strategy and backend is ported now; the options that are not
-    (``refine_mapping``, ``coarsen_telemetry``) raise under any of them."""
+    """Every strategy and backend is ported now, and ``refine_mapping``
+    (tests/test_torch_mapping.py); the option that is not
+    (``coarsen_telemetry``) raises under any of them, with or without
+    ``refine_mapping``."""
     g = TG.gen_grid(8, device="cpu")
     with pytest.raises(exc):
         shared_map(g, Hierarchy((2, 2), (1.0, 10.0)), SharedMapConfig(**kw), device="cpu")
