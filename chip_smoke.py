@@ -61,7 +61,28 @@
    4:8:4 (k = 128) beside SharedMap there; GM and KaFFPa-map must launch
    all five mapping kernels. One line per algorithm: wall seconds, J, and
    J over SharedMap's.
-8. The serving path: the llama3.2 smoke config's prefill on the card
+8. The mapping service (``repro_torch.serve.mapper``) on the card. (a) The
+   JAX package's own service traffic (``benchmarks/run.py:bench_serve``,
+   full size): 24 distinct ``gen_rgg(64)`` graphs on 2:2:2:2 / 1:5:10:100,
+   ``preset="fast"``, through the sequential direct path, then as
+   ``submit_many`` bursts on a service without a cache, with
+   ``pad_batch_pow2`` on and off; every ``pe_of`` equals the direct path's
+   and the bursts coalesce (groups > dispatches). The cold first request,
+   both walls and the cached-repeat latency are printed. (b) The main
+   path's size through the installed service: ``shared_map`` of phase 6's
+   graph with a service whose store is a temporary directory gives phase
+   6's first ``pe_of`` and J 1,698,496 and launches the five mapping
+   kernels; a repeat is a cache hit, and a second service on the same store
+   serves it as a store hit. The seconds of the host fetch and the hash of
+   the fingerprint are printed. (c) Four ``gen_rgg(2**15)`` requests on
+   4:8:6 submitted together against four direct calls one after another.
+   (d) Worker mode: two worker processes on the card answer two of (c)'s
+   requests (``backend`` ``ell``, the direct ``pe_of``), then a worker
+   killed on its first dispatch (``FaultInjector``, ``worker_kill``) is
+   restarted and its request still resolves bit for bit. (e) Shadow
+   verification of one ``strategy="device"`` request at 2^15: sampled 1,
+   matched 1, the device strategy not quarantined.
+9. The serving path: the llama3.2 smoke config's prefill on the card
    against the CPU, then llama3.2-3b at full width (28 layers, d_model
    3072, random weights from a seeded ``torch.Generator``). ``prefill_fn`` on
    B = 4 x S = 4096 tokens (the ``prefill_32k`` cell cut to fit the smoke's
@@ -75,8 +96,8 @@
    on the q [B, S, H, D] and k/v [B, S, Hkv, D] of layer 0 of that prefill,
    as the model hands them over, and on small shapes: f32, and bf16 at D
    12, 64 and 256 with three query heads per KV head.
-9. Prints one JSON line with every kernel's numbers, then the contract's
-   last line. Any failed check raises, and the script exits non-zero.
+10. Prints one JSON line with every kernel's numbers, then the contract's
+    last line. Any failed check raises, and the script exits non-zero.
 
 It needs a CUDA device and the repository's ``src/``; without either it
 exits with code 2 and prints no result. It imports nothing of JAX.
@@ -364,7 +385,7 @@ def _flash_pairs(S: int, causal: bool, window: int) -> int:
 
 
 def _serving_path(dev, check, _build) -> int:
-    """Phase 8: llama3.2-3b prefill (flash and _sdpa), the Engine, a profile
+    """Phase 9: llama3.2-3b prefill (flash and _sdpa), the Engine, a profile
     and the flash kernel against its plain version. Returns the flash
     launches of one full-width prefill."""
     import numpy as np
@@ -569,9 +590,189 @@ def _serving_path(dev, check, _build) -> int:
     return ln_f["flash_attention"]
 
 
+def _service_path(dev, g, h, pe_main, j_main, _build) -> None:
+    """Phase 8: the mapping service on the card (see the module doc)."""
+    import concurrent.futures
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import graph as G
+    from repro_torch.core.api import SharedMapConfig, shared_map, shared_map_direct
+    from repro_torch.core.hierarchy import parse_hierarchy
+    from repro_torch.faults import FaultInjector
+    from repro_torch.serve import mapper as SM
+
+    def same(a, b, what):
+        if not (np.array_equal(a.pe_of, b.pe_of) and a.J == b.J):
+            raise AssertionError(f"service {what}: pe_of or J differs from the direct path's")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def coalesced(before, after):
+        co = {k: after[k] - before[k] for k in after}
+        if not co["groups"] > co["dispatches"]:
+            raise AssertionError(f"service burst did not coalesce: {co}")
+        return co
+
+    # (a) the JAX package's service traffic (benchmarks/run.py:bench_serve)
+    hs = parse_hierarchy(*SERVE_H)
+    cfg = SharedMapConfig(preset="fast", seed=1)
+    gs = [G.gen_rgg(SERVE_N, seed=100 + i, device=dev) for i in range(SERVE_R)]
+    shared_map_direct(gs[0], hs, cfg, device=dev)   # the allocator's first blocks
+    direct, t_seq = timed(lambda: [shared_map_direct(x, hs, cfg, device=dev) for x in gs])
+    for pad in (True, False):
+        svc = SM.MappingService(cache_entries=0, pad_batch_pow2=pad, device=dev)
+        try:
+            first, t_cold = timed(lambda: svc.map(gs[0], hs, cfg))
+            same(first, direct[0], "(a) first request")
+            co0 = svc.stats()["coalesce"]
+            out, t_burst = timed(lambda: [f.result() for f in svc.submit_many(
+                [(x, hs, cfg) for x in gs])])
+            co = coalesced(co0, svc.stats()["coalesce"])
+        finally:
+            svc.close()
+        for i, (a, b) in enumerate(zip(out, direct)):
+            same(a, b, f"(a) burst request {i}, pad_batch_pow2={pad}")
+        print(f"service (a) {SERVE_R} x rgg {SERVE_N} on {hs}, fast, pad_batch_pow2={pad}: "
+              f"first request {t_cold:.3f} s, burst {t_burst:.3f} s against the "
+              f"sequential direct path's {t_seq:.3f} s (ratio {t_burst / t_seq:.3f}); "
+              f"burst coalesce {co}; every pe_of equal to the direct path's", flush=True)
+    svc = SM.MappingService(device=dev)
+    try:
+        svc.map(gs[0], hs, cfg)
+        reps = 20
+        hits, t_hits = timed(lambda: [svc.map(gs[0], hs, cfg) for _ in range(reps)])
+    finally:
+        svc.close()
+    if not all(r.stats["result_cache"]["hit"] for r in hits):
+        raise AssertionError("service (a): a repeat was not a cache hit")
+    print(f"service (a) cached repeat rgg {SERVE_N}: {t_hits / reps * 1e3:.3f} ms a request "
+          f"({t_seq / SERVE_R / (t_hits / reps):.0f}x below a direct request)", flush=True)
+    del gs, direct, out, hits
+
+    # (b) the main path's size through the installed service, with a store
+    n, m = int(g.n), int(g.m)
+    view = SM.host_view(g)
+    t0 = time.perf_counter()
+    gfp = SM.graph_fingerprint(g, h, view=view)
+    t_hash = time.perf_counter() - t0
+    nbytes = sum(a.nbytes for a in (view.vwgt, view.rows, view.cols, view.ewgt))
+    print(f"service (b) fingerprint of rgg n={n} m={m}: host fetch of the real slices "
+          f"{view.seconds:.3f} s ({nbytes} B), blake2b {t_hash:.3f} s, {gfp.hex()}", flush=True)
+    del view
+    cfg = SharedMapConfig()
+    with tempfile.TemporaryDirectory() as store:
+        svc = SM.MappingService(store_path=store, device=dev)
+        try:
+            with svc.installed():
+                r1, t1, ln = _run_path("service (b), rgg 2^20 through shared_map",
+                                       lambda: shared_map(g, h, cfg, device=dev),
+                                       MAPPING_KERNELS, _build)
+                r2, t2 = timed(lambda: shared_map(g, h, cfg, device=dev))
+        finally:
+            svc.close()
+        svc = SM.MappingService(store_path=store, device=dev)
+        try:
+            r3, t3 = timed(lambda: svc.map(g, h, cfg))
+            st = svc.stats()["store"]
+        finally:
+            svc.close()
+        entry_bytes = sum(p.stat().st_size for p in Path(store).glob("*.res"))
+    if not (np.array_equal(r1.pe_of, pe_main) and r1.J == j_main == MAIN_PATH_J):
+        raise AssertionError(f"service (b): J {r1.J} (phase 6: {j_main}, expected "
+                             f"{MAIN_PATH_J}) or pe_of differs from phase 6's")
+    if r1.stats["backend"] != "ell" or r1.stats["result_cache"]["hit"]:
+        raise AssertionError("service (b): the first call was not an ell computation")
+    if not (r2.stats["result_cache"]["hit"] and r3.stats["result_cache"]["hit"]
+            and st["hits"] == 1):
+        raise AssertionError(f"service (b): repeat or store read not a hit ({st})")
+    for r, what in ((r2, "(b) cache hit"), (r3, "(b) store hit")):
+        same(r, r1, what)
+    print(f"service (b) rgg n={n} on {h} through the installed service: first call "
+          f"{t1:.2f} s, J {r1.J} (phase 6's pe_of), launches {ln}; repeat (cache hit) "
+          f"{t2:.3f} s; a second service on the store (store hit, an entry of "
+          f"{entry_bytes} B) {t3:.3f} s, bit for bit", flush=True)
+    del r1, r2, r3
+
+    # (c) coalescing at scale
+    gc = [G.gen_rgg(SERVE_N_SCALE, seed=s, device=dev) for s in range(4)]
+    cfg = SharedMapConfig()
+    direct, t_seq = timed(lambda: [shared_map_direct(x, h, cfg, device=dev) for x in gc])
+    svc = SM.MappingService(cache_entries=0, device=dev)
+    try:
+        out, t_burst = timed(lambda: [f.result() for f in svc.submit_many(
+            [(x, h, cfg) for x in gc])])
+        co = coalesced(dict.fromkeys(("dispatches", "groups", "members", "padded_lanes"), 0),
+                       svc.stats()["coalesce"])
+    finally:
+        svc.close()
+    for i, (a, b) in enumerate(zip(out, direct)):
+        same(a, b, f"(c) request {i}")
+    print(f"service (c) 4 x rgg {SERVE_N_SCALE} on {h}, default config: burst "
+          f"{t_burst:.2f} s against four direct calls {t_seq:.2f} s (ratio "
+          f"{t_burst / t_seq:.3f}); coalesce {co}; every pe_of equal", flush=True)
+
+    # (d) worker mode on the card
+    t0 = time.perf_counter()
+    svc = SM.MappingService(workers=2, cache_entries=0, device=dev)
+    try:
+        t_pool = time.perf_counter() - t0
+        futs = [svc.submit(gc[i], h, cfg) for i in (0, 1)]
+        concurrent.futures.wait(futs, return_when=concurrent.futures.FIRST_COMPLETED)
+        t_first = time.perf_counter() - t0
+        out = [f.result() for f in futs]
+        t_both = time.perf_counter() - t0
+    finally:
+        svc.close()
+    for i, r in enumerate(out):
+        if r.stats["backend"] != "ell":
+            raise AssertionError(f"service (d): worker backend {r.stats['backend']!r}")
+        same(r, direct[i], f"(d) worker request {i}")
+    inj = FaultInjector(fail_at={"worker_kill": (0,)})
+    svc = SM.MappingService(workers=1, cache_entries=0, fault_injector=inj, device=dev)
+    try:
+        r, t_kill = timed(lambda: svc.map(gc[2], h, cfg))
+        ws = svc.stats()["workers"]
+    finally:
+        svc.close()
+    same(r, direct[2], "(d) request of the killed worker")
+    if not (ws["killed_injected"] == 1 and ws["restarts"] >= 1 and ws["redispatched"] >= 1
+            and r.stats["backend"] == "ell"):
+        raise AssertionError(f"service (d): kill not recovered as expected: {ws}")
+    print(f"service (d) two workers on the card: pool started in {t_pool:.2f} s, "
+          f"spawn to first result {t_first:.2f} s, both {t_both:.2f} s, backend ell, "
+          f"pe_of equal; a worker killed on its first dispatch: resolved in "
+          f"{t_kill:.2f} s bit for bit, workers {ws}", flush=True)
+
+    # (e) shadow verification of the device strategy
+    svc = SM.MappingService(shadow_verify_fraction=1.0, device=dev)
+    try:
+        r, t_dev = timed(lambda: svc.map(gc[3], h, SharedMapConfig(strategy="device")))
+    finally:
+        svc.close(wait=True)   # drains the shadow job
+    sh = svc.stats()["shadow"]
+    if (sh["sampled"], sh["matched"], sh["device_quarantined"]) != (1, 1, False):
+        raise AssertionError(f"service (e): shadow verification {sh}")
+    print(f"service (e) device strategy rgg {SERVE_N_SCALE} with shadow verification: "
+          f"request {t_dev:.2f} s, shadow {sh}, J {r.J}", flush=True)
+    del gc, direct, out
+
+
 QUALITY = ("shared_map(tg)", "refine_mapping", "global_multisection", "kaffpa_map_style",
            "random_mapping", "greedy_baseline")
 KAFFPA_HIERARCHY = ("4:8:4", "1:10:100")   # k = 128: the nearest paper hierarchy with k = 2^j
+MAIN_PATH_J = 1_698_496    # J of the main path (rgg 2^20 on 4:8:6) under ell
+# phase 8 (a): benchmarks/run.py:bench_serve at its full size
+SERVE_R, SERVE_N, SERVE_H = 24, 64, ("2:2:2:2", "1:5:10:100")
+# (c)-(e): the requests coalesced, sent to workers, shadowed; cut from 2^16
+# (371 s for phase 8 there) to fit the smoke's time limit
+SERVE_N_SCALE = 2**15
 
 
 def _quality_run(alg, g, h, device, backend="auto"):
@@ -1106,19 +1307,25 @@ def main() -> int:
                          record=False, label=f" at the main path's pe_of, {label}")
     if float(kernel(*args)) != out_t[0].J:
         raise AssertionError("mapcost at the main path's pe_of gives another J")
+    pe_main, j_main = res.pe_of, res.J
     del gp, res, res_x, res_x2, out_t, times, caps, m_args, args
     torch.cuda.empty_cache()
 
     # ---- 7. the paper's quality comparison ---------------------------------
     _quality_small(dev)
     _quality_main(dev, g, tg, gt, h, res2, t_second, every, _build)
-    del g, gt, tg, res2
+    del gt, tg, res2
     torch.cuda.empty_cache()
 
-    # ---- 8. the serving path: llama3.2-3b at full width ---------------------
+    # ---- 8. the mapping service on the card ----------------------------------
+    _service_path(dev, g, h, pe_main, j_main, _build)
+    del g
+    torch.cuda.empty_cache()
+
+    # ---- 9. the serving path: llama3.2-3b at full width ---------------------
     flash_launches = _serving_path(dev, check, _build)
 
-    # ---- 9. the kernels line and the contract's last line -------------------
+    # ---- 10. the kernels line and the contract's last line ------------------
     for r in rows:
         if r["name"] == "flash_attention":
             r["launches"] = flash_launches

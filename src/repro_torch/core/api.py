@@ -5,12 +5,17 @@
 >>> res = shared_map(graph, hierarchy, device="cpu")
 >>> res = shared_map(TaskGraph.from_graph(graph), hierarchy, device="cpu")
 >>> res.pe_of, res.J
+
+With a mapping service installed (``serve/mapper.py``), ``shared_map`` is
+answered by it: coalesced with concurrent requests, from its result cache
+when it can, bit for bit the direct path's result either way.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from .graph import Graph, resolve_device
 from .hierarchy import Hierarchy
@@ -45,6 +50,34 @@ class SharedMapResult:
     stats: dict
 
 
+# An installed serve.mapper.MappingService (None = direct execution). The
+# hook lives here so that core imports nothing of serve (serve imports core).
+_SERVICE = None
+
+
+def install_service(service) -> object | None:
+    """Route ``shared_map`` through ``service`` (None = the direct path).
+    Returns the previously installed service."""
+    global _SERVICE
+    prev = _SERVICE
+    _SERVICE = service
+    return prev
+
+
+def current_service():
+    return _SERVICE
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:<current>`` name one card."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+
+
 def shared_map(g: Graph | TaskGraph, h: Hierarchy, config: SharedMapConfig | None = None,
                device=None) -> SharedMapResult:
     """Solve GPMP for communication graph ``g`` on hierarchy ``h``.
@@ -54,19 +87,34 @@ def shared_map(g: Graph | TaskGraph, h: Hierarchy, config: SharedMapConfig | Non
     versions on the CPU), or a :class:`TaskGraph`, lowered through its
     memoized ``to_graph(device=...)``: ``shared_map(tg)`` and
     ``shared_map(tg.to_graph())`` give the same result bit for bit.
+
+    With a service installed the request goes through it. ``device`` must
+    then name the service's device: a request is never moved to another
+    device than the one its caller asked for (``ValueError``).
     """
-    return shared_map_direct(g, h, config or SharedMapConfig(), device=device)
+    cfg = config or SharedMapConfig()
+    svc = _SERVICE
+    if svc is not None:
+        want = torch.device("cuda" if device is None else device)
+        if not _same_device(want, svc.device):
+            raise ValueError(f"shared_map(device={str(want)!r}): the installed mapping "
+                             f"service runs on {str(svc.device)!r}")
+        return svc.map(g, h, cfg)
+    return shared_map_direct(g, h, cfg, device=device)
 
 
 def shared_map_direct(g: Graph | TaskGraph, h: Hierarchy, cfg: SharedMapConfig,
                       checkpoint=None, resident=None, device=None) -> SharedMapResult:
-    """The in-process path. ``checkpoint`` (optional zero-arg callable) is
+    """The in-process path, and the one the mapping service falls back on
+    for the strategies it does not coalesce (``naive``, ``queue``).
+    ``checkpoint`` (optional zero-arg callable) is
     called between multisection levels; raising inside it aborts the run.
     ``resident`` overrides the planner strategies' device residency (None =
     the strategy's default); ``False`` runs the bitwise host-mirror twin."""
     if cfg.coarsen_telemetry:
         raise NotImplementedError("coarsen_telemetry is not ported yet "
-                                  "(ROADMAP.md, Queue 1, item 6)")
+                                  "(ROADMAP.md, Queue 1, item 6, "
+                                  "'Remaining core pieces')")
     dev = resolve_device(device)
     g = g.to_graph(device=dev) if isinstance(g, TaskGraph) else g.to(dev)
     res = hierarchical_multisection(
@@ -82,7 +130,9 @@ def finalize_mapping(g: Graph, h: Hierarchy, cfg: SharedMapConfig,
                      pe_of: np.ndarray, stats: dict) -> np.ndarray:
     """The post-multisection step: the optional block<->PE swap pass on the
     host (``quotient_matrix`` fetches the graph's edges once). The result
-    stays int32, as the multisection's ``pe_of`` is."""
+    stays int32, as the multisection's ``pe_of`` is. The service's planner
+    path finalizes with this same function, so its results are the direct
+    path's bit for bit."""
     if cfg.refine_mapping:
         C = quotient_matrix(g, pe_of, h.k)
         perm = swap_refine(C, h, np.arange(h.k, dtype=np.int32), seed=cfg.seed)

@@ -155,7 +155,7 @@ def coarsen_once(g: Graph, salt: int = 0, rounds: int = 3,
     if ell_deg is None:
         raise NotImplementedError(
             "the segment coarsening path (ell_deg=None) is not ported yet "
-            "(ROADMAP.md, Queue 1, item 4)")
+            "(ROADMAP.md, Queue 1, item 6, 'Remaining core pieces')")
     adj, adw, _ = ell_adjacency(g, ell_deg)
     labels = hem_match_ell(g, adj, adw, rounds=rounds, salt=salt)
     return contract_ell(g, labels, adj, adw)

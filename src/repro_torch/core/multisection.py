@@ -32,8 +32,10 @@ in its results and kept as the regression reference. ``naive`` and
 Planner and executor are split as in the reference: :func:`plan_level`
 turns a level into :class:`PlanGroup`s (pure bookkeeping),
 :func:`dispatch_group_batch`/:func:`fetch_group_batch` run one batched
-partition call for groups sharing an ``exec_key``. The reference's
-``stats["compile_cache"]`` has no meaning without ``jit`` and is left out.
+partition call for groups sharing an ``exec_key``, so the mapping service
+(``serve/mapper.py``) merges the groups of several requests into one
+dispatch. The reference's ``stats["compile_cache"]`` has no meaning without
+``jit`` and is left out.
 
 Transfer accounting: module-level counters (:func:`transfer_stats`,
 :func:`reset_transfer_stats`) record every host<->device movement the
@@ -377,12 +379,22 @@ def plan_level(work: list, h: Hierarchy, eps: float, preset: str, seed: int,
     return out
 
 
-def dispatch_group_batch(groups: list[PlanGroup], device) -> tuple:
+def dispatch_group_batch(groups: list[PlanGroup], device,
+                         pad_batch_pow2: bool = False) -> tuple:
     """ONE batched partition call for PlanGroups sharing ``exec_key``;
     returns a handle for :func:`fetch_group_batch`. Host groups upload
     their members, resident groups contribute their device batches. The
     kernels run on the device's stream, so the call returns while the
-    device works on."""
+    device works on.
+
+    ``pad_batch_pow2`` is the reference's keyword, and here it changes
+    nothing. The reference replicates the last lane up to a power of two so
+    that XLA compiles O(log B) batch widths; the port compiles nothing, and
+    :func:`batched_partition` runs its lanes one after another, so a
+    replicated lane would cost a whole lane's work for an output that is
+    dropped. Lanes are independent, so the results are the same either way;
+    the mapping service still counts the lanes the reference would pad
+    (``stats()["coalesce"]["padded_lanes"]``)."""
     key = groups[0].exec_key
     for gr in groups[1:]:
         if gr.exec_key != key:
@@ -421,10 +433,11 @@ def fetch_group_batch(handle: tuple) -> list:
     return out
 
 
-def execute_group_batch(groups: list[PlanGroup], device) -> list:
+def execute_group_batch(groups: list[PlanGroup], device,
+                        pad_batch_pow2: bool = False) -> list:
     """Dispatch + fetch in one call. Lanes are independent, so a member's
     partition is the same whatever batch it rides in."""
-    return fetch_group_batch(dispatch_group_batch(groups, device))
+    return fetch_group_batch(dispatch_group_batch(groups, device, pad_batch_pow2))
 
 
 _PLANNER_STRATEGIES = ("layer", "bucket", "device")
@@ -518,6 +531,10 @@ class LevelPlanner:
                                   wsum=self.total_weight or 0.0)]
 
     # -- the plan/advance cycle ------------------------------------------------
+
+    @property
+    def done(self) -> bool:
+        return self._done
 
     def plan(self) -> list[PlanGroup]:
         """PlanGroups for the current level; ``[]`` once fully partitioned.

@@ -6,9 +6,9 @@
     decode_fn(cfg, params, tokens, cache, pos, ctx) -> (logits, cache)
 
 The port of ``repro/models/model.py`` for the dense family. The other
-families raise ``NotImplementedError`` (ROADMAP Queue 1 item 11);
-``loss_fn`` (training), ``input_specs`` and ``scan_trip_hints`` (the JAX
-dry-run) are not ported.
+families raise ``NotImplementedError`` (ROADMAP.md, Queue 1, item 7, "The
+rest of ``models/``"); ``loss_fn`` (training), ``input_specs`` and
+``scan_trip_hints`` (the JAX dry-run) are not ported.
 """
 from __future__ import annotations
 

@@ -5,9 +5,10 @@ its axis names and a set of knobs. On one card the mesh has one device, so
 the port keeps the knobs that change what its dense prefill and decode run
 there and makes ``constrain`` the identity. The reference's ``remat`` (a
 training knob) and ``slstm_chunk`` (xLSTM) come with the slices that port
-training and xLSTM (ROADMAP Queue 1 item 11). Sharding over several
-devices (a mesh, ``attn_seq_shard``) is ROADMAP Queue 1 item 14 and raises
-here.
+training and xLSTM (ROADMAP.md, Queue 1, items 7 and 9, "The rest of
+``models/``" and "``train/``"). Sharding over several devices (a mesh,
+``attn_seq_shard``) is ROADMAP.md, Queue 1, item 10, "``launch/``", and
+raises here.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ class ShardCtx:
         if self.mesh is not None or self.attn_seq_shard:
             raise NotImplementedError(
                 "repro_torch runs on one device: meshes and attn_seq_shard are "
-                "ROADMAP Queue 1 item 14")
+                "ROADMAP.md, Queue 1, item 10, 'launch/'")
 
     def constrain(self, x, *spec):
         return x

@@ -4,8 +4,8 @@ The port of the dense path of ``repro/models/transformer.py``. The
 reference stacks each block's params along a leading ``[L, ...]`` axis and
 scans over it; here ``DecoderLM.blocks`` is an ``nn.ModuleList`` of ``L``
 ``Block``s and the scan is a Python loop. The other families (MoE, hybrid
-Mamba, xLSTM, the vision stub) and ``lm_loss`` are ROADMAP Queue 1 item 11
-and raise.
+Mamba, xLSTM, the vision stub) and ``lm_loss`` are ROADMAP.md, Queue 1, item
+7, "The rest of ``models/``", and raise.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ def check_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.layer_kinds() != [KIND]:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; repro_torch "
-            "runs the dense family (ROADMAP Queue 1 item 11 lists the rest)")
+            "runs the dense family (ROADMAP.md, Queue 1, item 7, 'The rest of "
+            "models/', lists the rest)")
 
 
 class Block(nn.ModuleDict):

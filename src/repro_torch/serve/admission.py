@@ -30,6 +30,8 @@ from __future__ import annotations
 import dataclasses
 import time
 
+import torch
+
 
 class ServiceOverloadError(RuntimeError):
     """Request shed by admission control (queue full / preempted).
@@ -174,11 +176,15 @@ class RetryPolicy:
         supervisor's ``WorkerCrashError``) carry a ``transient`` attribute
         and say so themselves; real-world compile/OOM-style errors are
         matched by message (runtimes surface RESOURCE_EXHAUSTED or an
-        out-of-memory condition through generic RuntimeErrors)."""
+        out-of-memory condition through generic RuntimeErrors). The card's
+        ``torch.cuda.OutOfMemoryError`` is transient whatever its message.
+        A failed kernel launch or an illegal address is not: it leaves the
+        process's CUDA context unusable, so retrying in the same process
+        cannot help (worker mode is the containment for it)."""
         transient = getattr(exc, "transient", None)
         if transient is not None:
             return bool(transient)
-        if isinstance(exc, MemoryError):
+        if isinstance(exc, (MemoryError, torch.cuda.OutOfMemoryError)):
             return True
         msg = str(exc).upper()
         return any(tag in msg for tag in

@@ -483,6 +483,53 @@ def test_auto_is_ell_on_the_card(cuda):
     assert res.stats["backend"] == "ell"
 
 
+MAPPING_KERNELS = ("gather_rows", "hem_propose", "contract_edges", "mapcost", "lp_gain")
+
+
+@pytest.mark.parametrize("strategy", ["bucket", "device"])
+def test_service_on_the_card_equals_the_direct_path(cuda, strategy):
+    """``shared_map`` through an installed service on the card: the direct
+    path's result on the card, through the five mapping kernels; a burst of
+    three coalesces and changes nothing; warmup loads the kernel library."""
+    from repro_torch.serve.mapper import MappingService
+    h = Hierarchy((4, 2), (1.0, 10.0))
+    cfg = SharedMapConfig(preset="fast", strategy=strategy)
+    gs = [G.gen_rgg(3000, seed=s, device=cuda) for s in (5, 6, 7)]
+    want = [shared_map_direct(g, h, cfg, device=cuda) for g in gs]
+    with MappingService(cache_entries=0, device=cuda) as svc:
+        w = svc.warmup(shapes=[(1024, 8192)], ks=[4], preset="fast", batch_sizes=(2,))
+        assert w["programs"] == 1 and _build._LIB is not None
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = shared_map(gs[0], h, cfg, device=cuda)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        burst = [f.result(timeout=600) for f in svc.submit_many([(g, h, cfg) for g in gs])]
+        co = svc.stats()["coalesce"]
+    assert got.stats["backend"] == "ell"
+    assert all(launches[k] > 0 for k in MAPPING_KERNELS), launches
+    for r, d in zip([got] + burst, want[:1] + want):
+        assert np.array_equal(r.pe_of, d.pe_of) and r.J == d.J
+    assert co["groups"] > co["dispatches"], co
+
+
+def test_worker_mode_on_the_card(cuda):
+    """A ``workers=1`` service on the card: the worker resolves ``auto`` to
+    ``ell`` (it ran on the card) and returns the direct path's ``pe_of``; a
+    CUDA pool refuses ``fork``."""
+    from repro_torch.serve.mapper import MappingService
+    h = Hierarchy((4, 2), (1.0, 10.0))
+    cfg = SharedMapConfig(preset="fast")
+    g = G.gen_rgg(3000, seed=5, device=cuda)
+    want = shared_map_direct(g, h, cfg, device=cuda)
+    with MappingService(workers=1, device=cuda) as svc:
+        got = svc.map(g, h, cfg)
+    assert got.stats["backend"] == "ell"
+    assert np.array_equal(got.pe_of, want.pe_of) and got.J == want.J
+    with pytest.raises(ValueError, match="fork"):
+        MappingService(workers=1, worker_kwargs={"ctx": "fork"}, device=cuda)
+
+
 # flash against its plain version, as (rtol, atol), the same as chip_smoke.py's
 # FLASH_TOL: both compute in f32 and round the output once to the input type,
 # so in bf16 they may differ by one rounding step (rtol 2^-7 is one bf16 ulp

@@ -286,7 +286,8 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.models.model, repro_torch.models.convert, "
             "repro_torch.serve.engine, repro_torch.configs.registry, "
             "repro_torch.core.baselines, repro_torch.core.taskgraph, repro_torch.faults, "
-            "repro_torch.serve.tracker, repro_torch.serve.admission, repro_torch.serve.store; "
+            "repro_torch.serve.tracker, repro_torch.serve.admission, repro_torch.serve.store, "
+            "repro_torch.serve.mapper, repro_torch.serve.supervisor; "
             "[repro_torch.configs.registry.get_config(a) for a in "
             "repro_torch.configs.registry.ARCHS]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
@@ -318,3 +319,8 @@ def test_entry_points_need_the_card_unless_told():
         partition(g, 2, 0.03, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_J(g, h, np.zeros(36, np.int32))
+    from repro_torch.serve.mapper import MappingService
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MappingService()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MappingService(workers=1)
