@@ -19,26 +19,26 @@
    with float weights (``graph.float_weights``): two card runs give one
    ``pe_of`` and one J, and the card's ``pe_of`` is compared with the
    CPU's.
-4. Runs the other strategies on the card at ``gen_rgg(2**16)`` on 4:8:6:
-   ``device`` equals its ``resident=False`` twin with one array fetch,
-   ``layer`` runs, ``queue`` equals ``naive``. The ``device`` strategy on
+4. Runs the other strategies on the card at ``gen_rgg(2**15)`` on 4:8:6
+   (cut from 2^16 for the smoke's time): ``device`` equals its
+   ``resident=False`` twin with one array fetch, ``layer`` runs, ``naive``
+   equals ``bucket``, and two ``xla`` runs give one ``pe_of``; ``queue``
+   equals ``naive`` on 4:8 (cut from 4:8:6). The ``device`` strategy on
    four levels (2:2:2:2), whose children at depth 3 reach the ``powf``
    kernel, equals the CPU's on grid 32x32 and rgg 2000; the ``powf``
    kernel is held bitwise against its plain version.
 5. Profiles the root's partition call under ``ell`` and under ``xla``
-   (device busy share, device ops, top kernels), each also with the
-   parent's float sums by label (``index_add_``, atomics) in place of
-   ``graph.label_sums``/``row_label_sums``, so that the cost of the
-   fixed-order sums shows.
+   (device busy share, device ops, top kernels).
 6. Runs the main path at a real size: ``gen_rgg(2**20, seed=0)`` on the
    hierarchy 4:8:6 with D = 1:10:100 (k = 192) and ``SharedMapConfig()``
    (``auto`` = ``ell`` on the card) and with ``xla`` pinned for comparison,
-   twice each in turns (ell, xla, xla, ell); the second ``ell`` run is fed
+   in turns (ell, xla, ell; two ``xla`` runs are held against each other in
+   phase 4); the second ``ell`` run is fed
    the graph's ``TaskGraph`` (its fingerprint and the seconds of
    ``from_graph`` and ``to_graph`` are printed). Its canonical CSR orders
    each row's neighbours otherwise than ``gen_rgg``'s, so its ``pe_of`` is
-   held against the fifth run's, on that CSR as a ``Graph``. Every path
-   reads the launch counts around its run. The fifth run, under ``ell``,
+   held against the fourth run's, on that CSR as a ``Graph``. Every path
+   reads the launch counts around its run. The fourth run, under ``ell``,
    puts a CUDA event pair around every launch of the five mapping kernels
    and prints, per kernel and per padded size, the launches, the summed ms
    and the median ms per launch. It captures, at each padded size of a
@@ -74,29 +74,53 @@
    6's first ``pe_of`` and J 1,698,496 and launches the five mapping
    kernels; a repeat is a cache hit, and a second service on the same store
    serves it as a store hit. The seconds of the host fetch and the hash of
-   the fingerprint are printed. (c) Four ``gen_rgg(2**15)`` requests on
-   4:8:6 submitted together against four direct calls one after another.
-   (d) Worker mode: two worker processes on the card answer two of (c)'s
+   the fingerprint are printed. (c) Two ``gen_rgg(2**14)`` requests on
+   4:8:6 submitted together against two direct calls one after another.
+   (d) Worker mode: two worker processes on the card answer (c)'s two
    requests (``backend`` ``ell``, the direct ``pe_of``), then a worker
    killed on its first dispatch (``FaultInjector``, ``worker_kill``) is
    restarted and its request still resolves bit for bit. (e) Shadow
-   verification of one ``strategy="device"`` request at 2^15: sampled 1,
+   verification of one ``strategy="device"`` request at 2^14: sampled 1,
    matched 1, the device strategy not quarantined.
-9. The serving path: the llama3.2 smoke config's prefill on the card
-   against the CPU, then llama3.2-3b at full width (28 layers, d_model
-   3072, random weights from a seeded ``torch.Generator``). ``prefill_fn`` on
-   B = 4 x S = 4096 tokens (the ``prefill_32k`` cell cut to fit the smoke's
-   time) through the flash kernel (28 launches) and through the dense
-   ``_sdpa`` path, whose last-position logits must agree; the KV-cache
-   ``Engine`` answers 4 prompts of 32 tokens with 64 greedy steps, and its
-   last prompt-step logits must agree with a flash prefill of the prompts.
-   One flash prefill is profiled (device busy share, the kernel's share),
-   and four engine steps (device ops per step).
-   The flash kernel is held against its plain version (``flash_bshd_ref``)
-   on the q [B, S, H, D] and k/v [B, S, Hkv, D] of layer 0 of that prefill,
-   as the model hands them over, and on small shapes: f32, and bf16 at D
-   12, 64 and 256 with three query heads per KV head.
-10. Prints one JSON line with every kernel's numbers, then the contract's
+9. HLO ingestion and the closed loop (the JAX package's
+   ``benchmarks/run.py:bench_model_graphs`` at its size). (a) The committed
+   HLO texts of whisper-tiny and xlstm-125m (``tests/data/hlo/``, written
+   where JAX runs; the card never compiles HLO) are extracted
+   (``launch.comm_graph.extract_comm_graph``, ``min_tasks`` 512): the
+   fingerprint, n, m and granularity equal the sidecar's. Each graph is
+   mapped on ``physical_hierarchy()`` (16:16, D 1:10, k = 256), ``fast``,
+   under ``ell`` (all five mapping kernels launch) and ``xla`` pinned: the
+   card's ``pe_of`` equals the CPU's, under ``xla`` also the JAX package's
+   (the sidecar's digest, J within ``mapcost``'s rtol), and J is below the
+   default placement's. ``sharedmap_device_order(False)`` gives J not above
+   the default order's. (b) The segment coarsening path
+   (``partition_host(coarsen="segment")``, k = 4, ``fast``, salt 1): on grid
+   32x32 and rgg 2000 under ``ell`` and ``xla``, unit and float weights, two
+   card runs equal the CPU's; then ``gen_grid(317)`` and
+   ``gen_rgg(100_000, seed=1)`` with both ``coarsen`` modes (seconds, cut,
+   largest block over Lmax; the segment path launches no coarsening
+   kernel). (c) ``coarsen_cascade`` on phase 6's graph with phase 6's ELL
+   cap: one synchronizing fetch, only ``hem_propose`` and
+   ``contract_edges`` launch, and its per-level sizes equal the v-cycle's
+   fine graphs (``partition._coarsen_levels``); the ``gen_grid(1000)``
+   10^6 tier (seconds, shrink per level); ``coarsen_telemetry`` through
+   ``shared_map`` on grid 32x32: the card's ``stats["coarsen"]`` equals the
+   CPU's.
+10. The serving path: the llama3.2 smoke config's prefill on the card
+    against the CPU, then llama3.2-3b at full width (28 layers, d_model
+    3072, random weights from a seeded ``torch.Generator``). ``prefill_fn`` on
+    B = 4 x S = 4096 tokens (the ``prefill_32k`` cell cut to fit the smoke's
+    time) through the flash kernel (28 launches) and through the dense
+    ``_sdpa`` path, whose last-position logits must agree; the KV-cache
+    ``Engine`` answers 4 prompts of 32 tokens with 64 greedy steps, and its
+    last prompt-step logits must agree with a flash prefill of the prompts.
+    One flash prefill is profiled (device busy share, the kernel's share),
+    and four engine steps (device ops per step).
+    The flash kernel is held against its plain version (``flash_bshd_ref``)
+    on the q [B, S, H, D] and k/v [B, S, Hkv, D] of layer 0 of that prefill,
+    as the model hands them over, and on small shapes: f32, and bf16 at D
+    12, 64 and 256 with three query heads per KV head.
+11. Prints one JSON line with every kernel's numbers, then the contract's
     last line. Any failed check raises, and the script exits non-zero.
 
 It needs a CUDA device and the repository's ``src/``; without either it
@@ -104,7 +128,6 @@ exits with code 2 and prints no result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import statistics
 import subprocess
@@ -120,7 +143,10 @@ F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM bf16 on the tensor cores, dense
 
 RGG_N = 2**20
-RGG_N_STRATEGIES = 2**16   # the device strategy keeps every lane at the root's shape
+# the device strategy keeps every lane at the root's shape; cut from 2^16 for
+# the smoke's time limit
+RGG_N_STRATEGIES = 2**15
+QUEUE_HIERARCHY = ("4:8", "1:10")   # the queue strategy's run, cut from 4:8:6
 HIERARCHY = ("4:8:6", "1:10:100")
 TPU_KERNELS = {   # the TPU kernel each CUDA kernel replaces (wrapper def line)
     "gather_rows": "src/repro/kernels/split.py:34",
@@ -319,43 +345,6 @@ def _mapcost_case(args):
             12 * M + 4 * N, 2 * M, None)
 
 
-@contextlib.contextmanager
-def _atomic_sums():
-    """Run with the parent's float sums by label, ``index_add_`` (atomics on
-    the card), in place of ``graph.label_sums`` and ``graph.row_label_sums``
-    in every module that calls them."""
-    import torch
-    from repro_torch.core import graph, initial, refine
-
-    def sums(slot, ok, w, size):   # dropped entries spread over 4096 spare slots
-        spare = size + torch.arange(slot.shape[-1], device=slot.device) % 4096
-        out = torch.zeros(size + 4096, dtype=w.dtype, device=slot.device)
-        out.index_add_(0, torch.where(ok, slot, spare).reshape(-1),
-                       w.expand(slot.shape).reshape(-1))
-        return out[:size]
-
-    def label_sums(labels, w, k):
-        R = labels.shape[0]
-        lane = torch.arange(R, device=labels.device)[:, None] * k
-        return sums(lane + labels, (labels >= 0) & (labels < k), w, R * k).view(R, k)
-
-    def row_sums(g, labels, w, k):
-        R, M = labels.shape
-        lane = torch.arange(R, device=g.device)[:, None] * (g.N * k)
-        ok = (labels >= 0) & (labels < k) & (torch.arange(M, device=g.device) < g.m)
-        return sums(lane + g.rows.long() * k + labels, ok, w, R * g.N * k).view(R, g.N, k)
-    swaps = [(graph, "label_sums", label_sums), (refine, "label_sums", label_sums),
-             (refine, "row_label_sums", row_sums), (initial, "row_label_sums", row_sums)]
-    saved = [getattr(mod, name) for mod, name, _ in swaps]
-    for mod, name, fn in swaps:
-        setattr(mod, name, fn)
-    try:
-        yield
-    finally:
-        for (mod, name, _), fn in zip(swaps, saved):
-            setattr(mod, name, fn)
-
-
 def _run_path(name, fn, expect, _build):
     """Drive one path with every launch count set to 0 just before it and
     read just after; fail if a kernel of the path never launched."""
@@ -385,7 +374,7 @@ def _flash_pairs(S: int, causal: bool, window: int) -> int:
 
 
 def _serving_path(dev, check, _build) -> int:
-    """Phase 9: llama3.2-3b prefill (flash and _sdpa), the Engine, a profile
+    """Phase 10: llama3.2-3b prefill (flash and _sdpa), the Engine, a profile
     and the flash kernel against its plain version. Returns the flash
     launches of one full-width prefill."""
     import numpy as np
@@ -701,7 +690,7 @@ def _service_path(dev, g, h, pe_main, j_main, _build) -> None:
     del r1, r2, r3
 
     # (c) coalescing at scale
-    gc = [G.gen_rgg(SERVE_N_SCALE, seed=s, device=dev) for s in range(4)]
+    gc = [G.gen_rgg(SERVE_N_SCALE, seed=s, device=dev) for s in range(2)]
     cfg = SharedMapConfig()
     direct, t_seq = timed(lambda: [shared_map_direct(x, h, cfg, device=dev) for x in gc])
     svc = SM.MappingService(cache_entries=0, device=dev)
@@ -714,8 +703,8 @@ def _service_path(dev, g, h, pe_main, j_main, _build) -> None:
         svc.close()
     for i, (a, b) in enumerate(zip(out, direct)):
         same(a, b, f"(c) request {i}")
-    print(f"service (c) 4 x rgg {SERVE_N_SCALE} on {h}, default config: burst "
-          f"{t_burst:.2f} s against four direct calls {t_seq:.2f} s (ratio "
+    print(f"service (c) 2 x rgg {SERVE_N_SCALE} on {h}, default config: burst "
+          f"{t_burst:.2f} s against two direct calls {t_seq:.2f} s (ratio "
           f"{t_burst / t_seq:.3f}); coalesce {co}; every pe_of equal", flush=True)
 
     # (d) worker mode on the card
@@ -737,11 +726,11 @@ def _service_path(dev, g, h, pe_main, j_main, _build) -> None:
     inj = FaultInjector(fail_at={"worker_kill": (0,)})
     svc = SM.MappingService(workers=1, cache_entries=0, fault_injector=inj, device=dev)
     try:
-        r, t_kill = timed(lambda: svc.map(gc[2], h, cfg))
+        r, t_kill = timed(lambda: svc.map(gc[1], h, cfg))
         ws = svc.stats()["workers"]
     finally:
         svc.close()
-    same(r, direct[2], "(d) request of the killed worker")
+    same(r, direct[1], "(d) request of the killed worker")
     if not (ws["killed_injected"] == 1 and ws["restarts"] >= 1 and ws["redispatched"] >= 1
             and r.stats["backend"] == "ell"):
         raise AssertionError(f"service (d): kill not recovered as expected: {ws}")
@@ -753,7 +742,7 @@ def _service_path(dev, g, h, pe_main, j_main, _build) -> None:
     # (e) shadow verification of the device strategy
     svc = SM.MappingService(shadow_verify_fraction=1.0, device=dev)
     try:
-        r, t_dev = timed(lambda: svc.map(gc[3], h, SharedMapConfig(strategy="device")))
+        r, t_dev = timed(lambda: svc.map(gc[0], h, SharedMapConfig(strategy="device")))
     finally:
         svc.close(wait=True)   # drains the shadow job
     sh = svc.stats()["shadow"]
@@ -764,6 +753,175 @@ def _service_path(dev, g, h, pe_main, j_main, _build) -> None:
     del gc, direct, out
 
 
+HLO_DIR = ROOT / "tests" / "data" / "hlo"
+HLO_FIXTURES = ("whisper_tiny_train", "xlstm_125m_train")   # written by make_hlo_fixtures.py
+SEGMENT_K, SEGMENT_EPS, SEGMENT_SALT = 4, 0.03, 1   # benchmarks/run.py:bench_coarsen_kernels
+
+
+def _ingestion_path(dev, g, deg_root, _build) -> None:
+    """Phase 9: HLO ingestion and the closed loop, the segment path, and the
+    coarsening cascade at the main path's size (see the module doc)."""
+    import gzip
+    import hashlib
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.core import graph as G
+    from repro_torch.core.api import SharedMapConfig, shared_map, shared_map_direct
+    from repro_torch.core.coarsen import coarsen_cascade
+    from repro_torch.core.hierarchy import parse_hierarchy
+    from repro_torch.core.mapping import evaluate_J
+    from repro_torch.core.partition import _coarsen_levels, num_levels, partition_host
+    from repro_torch.launch import comm_graph as CG
+    from repro_torch.launch import mesh as MESH
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) the model fixtures: extraction, then the mapping on the card
+    h = MESH.physical_hierarchy(False)
+    no_lp = [k for k in MAPPING_KERNELS if k != "lp_gain"]
+    for stem in HLO_FIXTURES:
+        with gzip.open(HLO_DIR / f"{stem}.hlo.txt.gz") as f:
+            text = f.read().decode()
+        side = json.loads((HLO_DIR / f"{stem}.json").read_text())
+        t0 = time.perf_counter()
+        tg = CG.extract_comm_graph(text, side["trip_hints"], min_tasks=side["min_tasks"])
+        t_ext = time.perf_counter() - t0
+        got = (tg.fingerprint().hex(), tg.n, tg.m, tg.meta["granularity"])
+        want = (side["fingerprint"], side["n"], side["m"], side["granularity"])
+        if got != want:
+            raise AssertionError(f"{stem}: extracted {got}, the sidecar holds {want}")
+        gt = tg.to_graph(device=dev)
+        j_def = evaluate_J(gt, h, CG.default_placement(tg.n, h.k), device=dev)
+        line = []
+        for backend, expect in (("ell", MAPPING_KERNELS), ("xla", no_lp)):
+            cfg = SharedMapConfig(preset="fast", backend=backend)
+            r, sec, ln = _run_path(f"closed loop {stem} {backend}",
+                                   lambda: shared_map_direct(tg, h, cfg, device=dev),
+                                   expect, _build)
+            rc = shared_map_direct(tg, h, cfg, device="cpu")
+            if r.pe_of.dtype != rc.pe_of.dtype or not np.array_equal(r.pe_of, rc.pe_of):
+                raise AssertionError(f"{stem} {backend}: the card's pe_of differs from the CPU's "
+                                     f"(J {r.J!r} / {rc.J!r})")
+            if not r.J < j_def:
+                raise AssertionError(f"{stem} {backend}: J {r.J} not below the default "
+                                     f"placement's {j_def}")
+            if backend == "xla":
+                digest = hashlib.blake2b(np.ascontiguousarray(r.pe_of[: tg.n]).tobytes(),
+                                         digest_size=16).hexdigest()
+                if digest != side["pe_of_blake2b"] or abs(r.J - side["J_xla_fast"]) > \
+                        1e-5 * side["J_xla_fast"]:
+                    raise AssertionError(f"{stem} xla: pe_of or J {r.J!r} is not the "
+                                         f"sidecar's ({side['J_xla_fast']!r})")
+            line.append(f"{backend}: mapping {sec:.2f} s, J {r.J!r}, J/J_default "
+                        f"{r.J / j_def:.4f}, pe_of equal to the CPU's"
+                        + (" and the JAX package's (sidecar)" if backend == "xla" else "")
+                        + f", launches {ln}")
+        print(f"closed loop {side['arch']} ({stem}): {tg.n} tasks, {tg.m} edges "
+              f"({tg.meta['granularity']}), extraction {t_ext:.3f} s, on {h} k={h.k}, fast; "
+              f"J_default {j_def!r}; " + "; ".join(line), flush=True)
+    t0 = time.perf_counter()
+    perm = MESH.sharedmap_device_order(False)
+    t_perm = time.perf_counter() - t0
+    gl = MESH.logical_comm_graph(False).to_graph(device=dev)
+    j_sm = evaluate_J(gl, h, perm, device=dev)
+    j_row = evaluate_J(gl, h, np.arange(h.k, dtype=np.int32), device=dev)
+    if j_sm > j_row:
+        raise AssertionError(f"sharedmap_device_order: J {j_sm} above the default order's {j_row}")
+    print(f"sharedmap_device_order(False): {t_perm:.3f} s on the host, J {j_sm!r} against the "
+          f"default order's {j_row!r} on {h}, {int((perm != np.arange(h.k)).sum())} chips "
+          f"moved", flush=True)
+
+    # (b) the segment coarsening path: card against CPU, then full size
+    def part_host(graph, backend, coarsen, device):
+        return partition_host(graph, SEGMENT_K, SEGMENT_EPS, "fast", SEGMENT_SALT, backend,
+                              coarsen, device=device)
+    for name, gs in (("grid 32x32", G.gen_grid(32, device="cpu")),
+                     ("rgg 2000", G.gen_rgg(2000, seed=3, device="cpu"))):
+        for backend in ("ell", "xla"):
+            for weights, gw in (("unit", gs), ("float", G.float_weights(gs, seed=7))):
+                cards = [part_host(gw, backend, "segment", dev) for _ in range(2)]
+                cpu = part_host(gw, backend, "segment", "cpu")
+                if not (torch.equal(cards[0], cards[1]) and torch.equal(cards[0].cpu(), cpu)):
+                    raise AssertionError(f"segment path, {name} {weights} {backend}: the card's "
+                                         "partitions differ from each other or from the CPU's")
+        print(f"segment path {name}, k={SEGMENT_K}: partition_host(coarsen='segment') equal on "
+              f"card (two runs) and CPU under ell and xla, unit and float weights", flush=True)
+    for name, make in (("grid 317x317", lambda: G.gen_grid(317, device=dev)),
+                       ("rgg 100000", lambda: G.gen_rgg(100_000, seed=1, device=dev))):
+        gs = make()
+        lmax = (1.0 + SEGMENT_EPS) * float(gs.total_weight()) / SEGMENT_K
+        row = []
+        for coarsen in ("ell", "segment"):
+            p, sec, ln = _run_path(f"partition_host {name} {coarsen}",
+                                   lambda: part_host(gs, "auto", coarsen, dev),
+                                   ["lp_gain"] + (["hem_propose", "contract_edges"]
+                                                  if coarsen == "ell" else []), _build)
+            if coarsen == "segment" and ln["hem_propose"] + ln["contract_edges"]:
+                raise AssertionError(f"segment path {name}: the coarsening kernels launched")
+            cut = float(G.edge_cut(gs, p))
+            big = float(G.block_weights(gs, p, SEGMENT_K).max()) / lmax
+            row.append(f"{coarsen} {sec:.2f} s, cut {cut!r}, largest block / Lmax {big:.4f}")
+        print(f"partition_host {name} n={int(gs.n)} m={int(gs.m)}, k={SEGMENT_K}, fast, salt "
+              f"{SEGMENT_SALT}, auto (ell): " + "; ".join(row), flush=True)
+        del gs
+
+    # (c) the cascade at the main path's size, one fetch, two kernels
+    n, m = int(g.n), int(g.m)
+    lv = num_levels(n, parse_hierarchy(*HIERARCHY).a[-1])
+    def cascade():   # every synchronizing call inside it raises a warning
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            return coarsen_cascade(g, lv, ell_deg=deg_root, device=dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        (ns, ms), sec, ln = _run_path("coarsen_cascade rgg 2^20", cascade,
+                                      ["hem_propose", "contract_edges"], _build)
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    others = {k: v for k, v in ln.items() if v and k not in ("hem_propose", "contract_edges")}
+    if len(syncs) != 1 or others:
+        raise AssertionError(f"coarsen_cascade: {len(syncs)} synchronizing calls {syncs[:3]}, "
+                             f"other kernels {others}")
+    fines, _, coarsest = _coarsen_levels(g, lv, deg_root)
+    sizes = [(int(x.n), int(x.m)) for x in fines[1:] + [coarsest]]
+    del fines, coarsest
+    if sizes != list(zip(ns.tolist(), ms.tolist())):
+        raise AssertionError(f"coarsen_cascade sizes {list(zip(ns, ms))} are not the "
+                             f"v-cycle's {sizes}")
+    print(f"coarsen_cascade rgg n={n} m={m}, {lv} levels, ELL cap {deg_root}: {sec:.3f} s, one "
+          f"synchronizing fetch, launches hem_propose {ln['hem_propose']} contract_edges "
+          f"{ln['contract_edges']}; sizes equal to the v-cycle's fine graphs: n "
+          f"{ns.tolist()}", flush=True)
+    g6 = G.gen_grid(1000, device=dev)
+    n6, m6 = int(g6.n), int(g6.m)
+    lv6, deg6 = num_levels(n6, 4), G.default_ell_deg(n6, m6)
+    coarsen_cascade(g6, 1, ell_deg=deg6, device=dev)    # the allocator's first blocks
+    (ns6, _), sec6 = timed(lambda: coarsen_cascade(g6, lv6, ell_deg=deg6, device=dev))
+    shrink = np.round(np.concatenate([[n6], ns6[:-1]]) / np.maximum(ns6, 1), 3).tolist()
+    print(f"coarsen_cascade grid 1000x1000 (the 10^6 tier) n={n6} m={m6}, {lv6} levels, cap "
+          f"{deg6}: {sec6:.3f} s, shrink per level {shrink}, coarsest n {int(ns6[-1])}",
+          flush=True)
+    del g6
+    gsm = G.gen_grid(32, device="cpu")
+    small_h = parse_hierarchy("4:2", "1:10")
+    cfg = SharedMapConfig(coarsen_telemetry=True)
+    a = shared_map(gsm, small_h, cfg, device=dev).stats["coarsen"]
+    b = shared_map(gsm, small_h, cfg, device="cpu").stats["coarsen"]
+    if a != b:
+        raise AssertionError(f"stats['coarsen'] on the card {a} differs from the CPU's {b}")
+    print(f"coarsen_telemetry grid 32x32 on {small_h}: stats['coarsen'] equal on card and "
+          f"CPU: {a}", flush=True)
+
+
 QUALITY = ("shared_map(tg)", "refine_mapping", "global_multisection", "kaffpa_map_style",
            "random_mapping", "greedy_baseline")
 KAFFPA_HIERARCHY = ("4:8:4", "1:10:100")   # k = 128: the nearest paper hierarchy with k = 2^j
@@ -771,8 +929,9 @@ MAIN_PATH_J = 1_698_496    # J of the main path (rgg 2^20 on 4:8:6) under ell
 # phase 8 (a): benchmarks/run.py:bench_serve at its full size
 SERVE_R, SERVE_N, SERVE_H = 24, 64, ("2:2:2:2", "1:5:10:100")
 # (c)-(e): the requests coalesced, sent to workers, shadowed; cut from 2^16
-# (371 s for phase 8 there) to fit the smoke's time limit
-SERVE_N_SCALE = 2**15
+# (371 s for phase 8 there) and then from four requests at 2^15 to two at
+# 2^14 to fit the smoke's time limit
+SERVE_N_SCALE = 2**14
 
 
 def _quality_run(alg, g, h, device, backend="auto"):
@@ -1061,31 +1220,27 @@ def main() -> int:
                                      "differ")
             b = shared_map(gf, small_h, cfg, device="cpu")
             same = int((a.pe_of == b.pe_of).sum())
-            with _atomic_sums():   # the parent's sums, for the record
-                old = {shared_map(gf, small_h, cfg, device=dev).pe_of.tobytes()
-                       for _ in range(3)}
             print(f"small {name} float weights backend {backend}: two card runs give one "
                   f"pe_of and J {a.J!r}; card against CPU: pe_of equal on {same} of "
-                  f"{len(a.pe_of)} vertices, J {a.J!r} / {b.J!r}; with index_add_ (the "
-                  f"parent's sums) {len(old)} distinct pe_of in 3 card runs", flush=True)
+                  f"{len(a.pe_of)} vertices, J {a.J!r} / {b.J!r}", flush=True)
 
-    # ---- 4. the other strategies on the card, at rgg 2^16 ------------------
+    # ---- 4. the other strategies on the card, at rgg 2^15 ------------------
     gsm = G.gen_rgg(RGG_N_STRATEGIES, seed=0, device=dev)
     every = list(MAPPING_KERNELS)
     strat = {}
 
     host_split = [k for k in every if k != "gather_rows"]   # split on the host
 
-    def run_strategy(label, cfg, resident=None, expect=every, backend="ell"):
+    def run_strategy(label, cfg, resident=None, expect=every, backend="ell", hh=h):
         def go():
             MS.reset_transfer_stats()
-            res = shared_map_direct(gsm, h, cfg, resident=resident, device=dev)
+            res = shared_map_direct(gsm, hh, cfg, resident=resident, device=dev)
             return res, MS.transfer_stats()
         (res, xfer), sec, launches = _run_path(label, go, expect, _build)
         if res.stats["backend"] != backend:
             raise AssertionError(f"{label}: backend {res.stats['backend']!r}")
         strat[label] = res
-        print(f"strategy {label} rgg n={RGG_N_STRATEGIES} on {h}: {sec:.2f} s, "
+        print(f"strategy {label} rgg n={RGG_N_STRATEGIES} on {hh}: {sec:.2f} s, "
               f"J {res.J}, partition calls {res.stats['partition_calls']}, array "
               f"fetches {xfer['d2h_array_fetches']}, launches {launches}", flush=True)
         return xfer
@@ -1101,13 +1256,24 @@ def main() -> int:
         raise AssertionError("device strategy differs from its resident=False twin")
     run_strategy("layer", SharedMapConfig(strategy="layer"))
     run_strategy("naive", SharedMapConfig(strategy="naive"), expect=host_split)
-    run_strategy("queue", SharedMapConfig(strategy="queue"), expect=host_split)
-    if not np.array_equal(strat["queue"].pe_of, strat["naive"].pe_of):
-        raise AssertionError("queue strategy differs from naive")
     if not np.array_equal(strat["bucket"].pe_of, strat["naive"].pe_of):
         raise AssertionError("bucket strategy differs from naive")
-    print("strategies: device equals its twin with one array fetch; queue equals "
-          "naive equals bucket", flush=True)
+    # queue against naive on QUEUE_HIERARCHY: its time follows its partition
+    # calls (5 there, 55 on 4:8:6), each behind its threads' interpreter-lock
+    # convoy; cut for the smoke's time limit
+    hq = parse_hierarchy(*QUEUE_HIERARCHY)
+    for name in ("naive", "queue"):
+        run_strategy(f"{name} on {hq}", SharedMapConfig(strategy=name), expect=host_split,
+                     hh=hq)
+    if not np.array_equal(strat[f"queue on {hq}"].pe_of, strat[f"naive on {hq}"].pe_of):
+        raise AssertionError("queue strategy differs from naive")
+    run_strategy("bucket, xla pinned, second run", SharedMapConfig(backend="xla"),
+                 expect=[k for k in every if k != "lp_gain"], backend="xla")
+    if not np.array_equal(strat["bucket, xla pinned"].pe_of,
+                          strat["bucket, xla pinned, second run"].pe_of):
+        raise AssertionError("two runs of one path gave different pe_of")
+    print(f"strategies: device equals its twin with one array fetch; naive equals "
+          f"bucket; two xla runs give one pe_of; queue equals naive on {hq}", flush=True)
     del gsm, strat
 
     # the device strategy on four levels: its children at depth 3 reach powf
@@ -1163,38 +1329,28 @@ def main() -> int:
         torch.ones(1, device=dev).add_(1)
         torch.cuda.synchronize()
     for backend, deg in (("ell", deg_root), ("xla", None)):
-        parts = {}
-        for sums, ctx in (("fixed-order label sums", contextlib.nullcontext),
-                          ("index_add_ (the parent's)", _atomic_sums)):
-            with ctx():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                with torch.profiler.profile(activities=acts) as prof:
-                    parts[sums] = partition(gp, top, 0.03, lv, "eco", 0, backend, deg,
-                                            device=dev)
-                    torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy_us = sum(e.self_device_time_total for e in events)
-            print(f"profile: root partition call (N={N0}, M={M0}, k={top}, {lv} levels, "
-                  f"eco, {backend}, cap {deg}), sums by {sums}: wall {wall:.2f} s under the "
-                  f"profiler, device busy {busy_us / 1e6:.3f} s "
-                  f"({100 * busy_us / 1e6 / wall:.1f}%), {sum(e.count for e in events)} "
-                  f"device ops", flush=True)
-            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-                print(f"profile:   {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d}x  "
-                      f"{e.key[:90]}", flush=True)
-            del prof, events
-        a, b = parts.values()
-        print(f"profile: root partition call, {backend}: the two sums give "
-              f"{'the same' if torch.equal(a, b) else 'another'} partition (unit weights: "
-              f"every sum exact)", flush=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            partition(gp, top, 0.03, lv, "eco", 0, backend, deg, device=dev)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in events)
+        print(f"profile: root partition call (N={N0}, M={M0}, k={top}, {lv} levels, "
+              f"eco, {backend}, cap {deg}): wall {wall:.2f} s under the profiler, device "
+              f"busy {busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f}%), "
+              f"{sum(e.count for e in events)} device ops", flush=True)
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+            print(f"profile:   {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d}x  "
+                  f"{e.key[:90]}", flush=True)
+        del prof, events
 
     # ---- 6. the main path at a real size, and xla pinned, in turns ---------
     # The second ell run takes the graph as a TaskGraph: its canonical CSR
     # holds the same edges as gen_rgg's, each row's neighbours in another
-    # order, so its pe_of is compared with the fifth run's, on that CSR as
+    # order, so its pe_of is compared with the fourth run's, on that CSR as
     # a Graph.
     t0 = time.perf_counter()
     tg = TaskGraph.from_graph(g)
@@ -1220,9 +1376,6 @@ def main() -> int:
         "main path", lambda: main_path(SharedMapConfig()), every, _build)
     (res_x, peak_x), t_xla, launches_x = _run_path(
         "xla pinned", lambda: main_path(SharedMapConfig(backend="xla")), no_lp, _build)
-    (res_x2, _), t_xla2, _ = _run_path(
-        "xla pinned, second run", lambda: main_path(SharedMapConfig(backend="xla")),
-        no_lp, _build)
     (res2, _), t_second, _ = _run_path(
         "main path, second run, fed the TaskGraph", lambda: main_path(SharedMapConfig(), tg),
         every, _build)
@@ -1230,11 +1383,12 @@ def main() -> int:
     rng = np.random.default_rng(0)
     j_rand = evaluate_J(g, h, rng.integers(0, h.k, n).astype(np.int32), device=dev)
     wv = g.vwgt[:n].cpu().numpy()
-    for label, r, t1, t2, pk, ln in (("main path", res, t_first, t_second, peak, launches),
-                                     ("xla pinned", res_x, t_xla, t_xla2, peak_x, launches_x)):
+    for label, r, secs, pk, ln in (
+            ("main path", res, f"{t_first:.2f} s, fed the TaskGraph {t_second:.2f} s",
+             peak, launches),
+            ("xla pinned", res_x, f"{t_xla:.2f} s", peak_x, launches_x)):
         bw = np.bincount(r.pe_of, weights=wv, minlength=h.k)
-        print(f"{label} rgg n={n} on {h}: first {t1:.2f} s, second {t2:.2f} s"
-              f"{' (the TaskGraph)' if r is res else ''}, backend "
+        print(f"{label} rgg n={n} on {h}: {secs}, backend "
               f"{r.stats['backend']}, J {r.J}, J random {j_rand}, max/avg block "
               f"weight {bw.max() / bw.mean():.4f}, peak memory {pk} B, partition "
               f"calls {r.stats['partition_calls']}, launches {ln}", flush=True)
@@ -1247,15 +1401,13 @@ def main() -> int:
         raise AssertionError(f"backend {res_x.stats['backend']!r}, expected 'xla'")
     if pe.shape != (n,) or pe.min() < 0 or pe.max() >= h.k:
         raise AssertionError("pe_of out of range")
-    if not np.array_equal(res_x.pe_of, res_x2.pe_of):
-        raise AssertionError("two runs of one path gave different pe_of")
     for r in (res, res2, res_x):
         if not r.J < j_rand:
             raise AssertionError(f"J {r.J} not below the random mapping's {j_rand}")
     print(f"main path: the TaskGraph's run J {res2.J} against gen_rgg's Graph's {res.J}, "
           f"pe_of equal on {int((res2.pe_of == pe).sum())} of {n} vertices", flush=True)
 
-    # every launch of the mapping kernels timed, in a fifth run under ell, on
+    # every launch of the mapping kernels timed, in a fourth run under ell, on
     # the TaskGraph's CSR as a Graph; contract_edges and lp_gain held and
     # timed at the captured shapes
     (out_t, times, caps), t_timed, launches_t = _run_path(
@@ -1308,7 +1460,7 @@ def main() -> int:
     if float(kernel(*args)) != out_t[0].J:
         raise AssertionError("mapcost at the main path's pe_of gives another J")
     pe_main, j_main = res.pe_of, res.J
-    del gp, res, res_x, res_x2, out_t, times, caps, m_args, args
+    del gp, res, res_x, out_t, times, caps, m_args, args
     torch.cuda.empty_cache()
 
     # ---- 7. the paper's quality comparison ---------------------------------
@@ -1319,13 +1471,17 @@ def main() -> int:
 
     # ---- 8. the mapping service on the card ----------------------------------
     _service_path(dev, g, h, pe_main, j_main, _build)
+    torch.cuda.empty_cache()
+
+    # ---- 9. HLO ingestion, the closed loop, the segment path, the cascade ----
+    _ingestion_path(dev, g, deg_root, _build)
     del g
     torch.cuda.empty_cache()
 
-    # ---- 9. the serving path: llama3.2-3b at full width ---------------------
+    # ---- 10. the serving path: llama3.2-3b at full width --------------------
     flash_launches = _serving_path(dev, check, _build)
 
-    # ---- 10. the kernels line and the contract's last line ------------------
+    # ---- 11. the kernels line and the contract's last line ------------------
     for r in rows:
         if r["name"] == "flash_attention":
             r["launches"] = flash_launches

@@ -37,7 +37,8 @@ class SharedMapConfig:
     backend: str = "auto"        # refinement: auto | ell | xla
     # ("ell" = the lp_gain kernel over the padded [N, DEG] adjacency;
     #  "auto" picks it on the card and "xla" on the CPU.)
-    coarsen_telemetry: bool = False  # not ported yet: raises when set
+    coarsen_telemetry: bool = False  # fill stats["coarsen"] with the root
+    # graph's per-level coarsening sizes (one more pass on the device)
     refine_mapping: bool = False  # optional block<->PE swap pass. The paper's
     # SharedMap has none (§6.4); it evens the comparison against GM, which
     # refines (DESIGN.md §2.3).
@@ -111,16 +112,13 @@ def shared_map_direct(g: Graph | TaskGraph, h: Hierarchy, cfg: SharedMapConfig,
     called between multisection levels; raising inside it aborts the run.
     ``resident`` overrides the planner strategies' device residency (None =
     the strategy's default); ``False`` runs the bitwise host-mirror twin."""
-    if cfg.coarsen_telemetry:
-        raise NotImplementedError("coarsen_telemetry is not ported yet "
-                                  "(ROADMAP.md, Queue 1, item 6, "
-                                  "'Remaining core pieces')")
     dev = resolve_device(device)
     g = g.to_graph(device=dev) if isinstance(g, TaskGraph) else g.to(dev)
     res = hierarchical_multisection(
         g, h, eps=cfg.eps, preset=cfg.preset, strategy=cfg.strategy,
         seed=cfg.seed, adaptive=cfg.adaptive, backend=cfg.backend,
-        checkpoint=checkpoint, resident=resident, device=dev)
+        checkpoint=checkpoint, resident=resident,
+        coarsen_telemetry=cfg.coarsen_telemetry, device=dev)
     res.pe_of = finalize_mapping(g, h, cfg, res.pe_of, res.stats)
     return SharedMapResult(pe_of=res.pe_of, J=evaluate_J(g, h, res.pe_of, device=dev),
                            stats=res.stats)

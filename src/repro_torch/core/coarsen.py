@@ -11,17 +11,24 @@ deterministic and ``rows`` stays sorted). Rows beyond the DEG cap are
 truncated; coarsening is a heuristic, and cut and balance are always
 evaluated on the untruncated fine graph.
 
-This slice ports the ELL path, the one the fused v-cycle runs; the
-reference's segment path (``hem_match``/``contract``) waits for a later
-slice.
+The segment path (:func:`hem_match` / :func:`contract`, ``coarsen_once``
+with ``ell_deg=None``) is the reference's exact edge-array formulation: a
+``scatter_reduce`` max/min proposal pass per round and a sort-based
+contraction whose weight sums run in entry order (``graph.segment_sum``).
+It has no degree cap and runs no kernel; ``partition(coarsen="segment")``
+takes it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .graph import I32, Graph, ell_adjacency, vertex_mask
+from .graph import (F32, I32, Graph, _sorted_offsets, default_ell_deg, edge_mask,
+                    ell_adjacency, resolve_device, segment_sum, sorted_segment_sum,
+                    vertex_mask)
 from .refine import _MASK32, _u32
 from ..kernels import ops as kops
+from ..kernels.ref import fma_f32
 
 _HASH_A = 2654435761
 _HASH_B = 40503
@@ -148,14 +155,129 @@ def contract_ell(g: Graph, labels: torch.Tensor, adj: torch.Tensor,
     return gc, newid
 
 
+# ---------------------------------------------------------------------------
+# segment path (exact, sort-based; plain PyTorch on either device)
+# ---------------------------------------------------------------------------
+
+def hem_match(g: Graph, rounds: int = 3, salt: int = 0) -> torch.Tensor:
+    """Heavy-edge matching over the edge arrays. Returns cluster labels
+    [N]: matched pairs share the smaller endpoint's id; unmatched vertices
+    point to themselves.
+
+    The score ``w * (1 + j) + j`` is rounded once, as XLA fuses it on the
+    CPU; an empty row's best is ``-inf`` and its proposal ``INT32_MAX``,
+    the reference's ``segment_max``/``segment_min`` identities.
+    """
+    N = g.N
+    dev = g.device
+    emask = edge_mask(g)
+    rows, cols = g.rows.long(), g.cols.long()
+    idx = torch.arange(N, dtype=I32, device=dev)
+    labels = idx
+    matched = ~vertex_mask(g)   # padding can never match
+    ninf = torch.full((N,), float("-inf"), dtype=F32, device=dev)
+    none = torch.full((N,), torch.iinfo(torch.int32).max, dtype=I32, device=dev)
+    milli = torch.tensor(1e-3, dtype=F32, device=dev)
+    for r in range(rounds):
+        free_edge = emask & ~matched[rows] & ~matched[cols] & (rows != cols)
+        jit_ = _edge_jitter(g.rows, g.cols, _i32(salt * 7 + 13 + r * _ROUND_SALT)) * milli
+        score = torch.where(free_edge, fma_f32(g.ewgt, 1.0 + jit_, jit_), float("-inf"))
+        row_best = ninf.scatter_reduce(0, rows, score, "amax")
+        is_best = free_edge & (score >= row_best[rows]) & torch.isfinite(score)
+        # tie-break: smallest column among best-scoring edges
+        prop_col = none.scatter_reduce(0, rows, torch.where(is_best, g.cols, N), "amin")
+        proposal = torch.where((prop_col < N) & ~matched, prop_col, idx)
+        mutual = (proposal != idx) & (proposal[proposal] == idx)
+        leader = torch.minimum(idx, proposal)
+        new_match = mutual & ~matched
+        labels = torch.where(new_match, leader, labels)
+        matched = matched | new_match
+    return labels
+
+
+def contract(g: Graph, labels: torch.Tensor) -> tuple[Graph, torch.Tensor]:
+    """Contract the clusters of ``labels``. Returns (coarse graph with the
+    SAME padded shapes, fine->coarse vertex map [N]).
+
+    Edges are sorted by (coarse u, coarse v) with two stable sorts, so each
+    coarse edge's fine copies are one contiguous run, summed in that order;
+    the run heads land in order at the front of the coarse arrays.
+    """
+    N, M = g.N, g.M
+    dev = g.device
+    vmask = vertex_mask(g)
+    idx = torch.arange(N, dtype=I32, device=dev)
+    ar_m = torch.arange(M, dtype=I32, device=dev)
+
+    is_leader = vmask & (labels == idx)
+    rank = torch.cumsum(is_leader.to(I32), 0, dtype=I32) - 1
+    n_coarse = is_leader.sum(dtype=I32)
+    # fine -> coarse id; padding parked at N-1 with zero weight
+    newid = torch.where(vmask, rank[labels], N - 1).to(I32)
+    vwgt_c = segment_sum(torch.where(vmask, g.vwgt, 0.0), newid, N)
+
+    cu = newid[g.rows]
+    cv = newid[g.cols]
+    valid = edge_mask(g) & (cu != cv)
+    # sort edges by (cu, cv), invalid ones parked at cu = N, last
+    order1 = torch.sort(torch.where(valid, cv, N), stable=True).indices
+    cu1 = torch.where(valid, cu, N)[order1]
+    cv1, w1 = cv[order1], torch.where(valid, g.ewgt, 0.0)[order1]
+    cu2, order2 = torch.sort(cu1, stable=True)
+    cv2, w2 = cv1[order2], w1[order2]
+
+    valid_s = cu2 < N
+    head = valid_s & ((ar_m == 0) | (cu2 != torch.roll(cu2, 1))
+                      | (cv2 != torch.roll(cv2, 1)))
+    seg = torch.cumsum(head.to(I32), 0, dtype=I32) - 1   # dedup segment per slot
+    agg_w = sorted_segment_sum(torch.where(valid_s, w2, 0.0), seg.clamp(min=0), M)
+
+    # heads go to their segment's slot; other writes to the trash slot M
+    slot = torch.where(head, seg, M)
+    rows_c = torch.full((M + 1,), N - 1, dtype=I32, device=dev)
+    rows_c[slot] = cu2
+    cols_c = torch.full((M + 1,), N - 1, dtype=I32, device=dev)
+    cols_c[slot] = cv2
+    m_coarse = head.sum(dtype=I32)
+    in_range = ar_m < m_coarse
+    rows_c = torch.where(in_range, rows_c[:M], N - 1)
+    cols_c = torch.where(in_range, cols_c[:M], N - 1)
+    ewgt_c = torch.where(in_range, agg_w, 0.0)
+    # the real rows are sorted: the CSR prefix is a binary search
+    indptr_c = _sorted_offsets(torch.where(in_range, rows_c, N), N)[: N + 1]
+    gc = Graph(vwgt=vwgt_c, rows=rows_c, cols=cols_c, ewgt=ewgt_c,
+               indptr=indptr_c, n=n_coarse, m=m_coarse)
+    return gc, newid
+
+
 def coarsen_once(g: Graph, salt: int = 0, rounds: int = 3,
                  ell_deg: int | None = None) -> tuple[Graph, torch.Tensor]:
-    """One HEM + contraction level on the ELL kernels (the adjacency is
-    built once and shared by matching and contraction)."""
+    """One HEM + contraction level. ``ell_deg=None`` runs the segment path;
+    an int runs the ELL kernels (the adjacency is built once and shared by
+    matching and contraction)."""
     if ell_deg is None:
-        raise NotImplementedError(
-            "the segment coarsening path (ell_deg=None) is not ported yet "
-            "(ROADMAP.md, Queue 1, item 6, 'Remaining core pieces')")
+        return contract(g, hem_match(g, rounds=rounds, salt=salt))
     adj, adw, _ = ell_adjacency(g, ell_deg)
     labels = hem_match_ell(g, adj, adw, rounds=rounds, salt=salt)
     return contract_ell(g, labels, adj, adw)
+
+
+def coarsen_cascade(g: Graph, levels: int, ell_deg: int | None = None,
+                    rounds: int = 3, device=None) -> tuple[np.ndarray, np.ndarray]:
+    """The coarsening cascade alone: the per-level sizes ``(ns [levels],
+    ms [levels])`` of the ELL path (the cap defaults to
+    ``default_ell_deg(N, M)`` of the padded shapes), the telemetry behind
+    ``stats["coarsen"]``. Only the current graph is kept (memory does not
+    grow with ``levels``), and the sizes are stacked on the device and
+    fetched once. ``g`` is moved to ``device`` (``None`` = the card)."""
+    dev = resolve_device(device)
+    g = g.to(dev)
+    deg = default_ell_deg(g.N, g.M) if ell_deg is None else ell_deg
+    if levels == 0:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    sizes, cur = [], g
+    for lvl in range(levels):
+        cur, _ = coarsen_once(cur, salt=(lvl + 1) * 131 + 7, rounds=rounds, ell_deg=deg)
+        sizes.append(torch.stack([cur.n, cur.m]))
+    ns, ms = torch.stack(sizes, dim=1).cpu().numpy()
+    return ns, ms

@@ -19,6 +19,8 @@ spare trash slot that is cut off afterwards.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import NamedTuple
 
 import numpy as np
@@ -55,7 +57,7 @@ class Graph(NamedTuple):
         return self.vwgt.device
 
     def total_weight(self) -> torch.Tensor:
-        return torch.sum(self.vwgt)
+        return xla_sum(self.vwgt)
 
     def to(self, device) -> "Graph":
         return Graph(*(a.to(device) for a in self))
@@ -165,23 +167,128 @@ def vertex_mask(g: Graph) -> torch.Tensor:
     return torch.arange(g.N, dtype=I32, device=g.device) < g.n
 
 
+_XLA_SUM_WINDOW = 32
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order XLA's CPU compiler adds, on
+    either device.
+
+    XLA rewrites a sum of L > 32 terms into windows of 32 (the L terms
+    centred in ceil(L / 32) * 32 slots, the padding zeros), each window added
+    in order, and repeats on the window sums until 32 or fewer remain, which
+    are added in order. The reference takes every ``jnp.sum`` so; ``torch.sum``
+    adds in another order, and for float weights whose sums are inexact
+    (above 2^24, or fractions) the two round apart. Here each window is a
+    segment of ``segment_reduce`` over a 2-D tensor, a loop in entry order
+    on either device. Where :func:`exact_sums` declared the weights exact
+    the card takes ``torch.sum``: every order gives the same bits there.
+    """
+    if x.is_cuda and _EXACT_SUMS.get():
+        return x.sum(-1)
+    lead = x.shape[:-1]
+    y = x.reshape(-1, x.shape[-1]).T          # [L, B]: the sum runs down axis 0
+    while True:
+        L = y.shape[0]
+        if L > _XLA_SUM_WINDOW:
+            m = -(-L // _XLA_SUM_WINDOW)
+            pad = m * _XLA_SUM_WINDOW - L
+            y = torch.nn.functional.pad(y, (0, 0, pad // 2, pad - pad // 2))
+            offsets = torch.arange(0, m * _XLA_SUM_WINDOW + 1, _XLA_SUM_WINDOW,
+                                   device=x.device)
+        else:
+            offsets = torch.tensor([0, L], device=x.device)
+        y = torch.segment_reduce(y.contiguous(), "sum", offsets=offsets, axis=0, unsafe=True)
+        if L <= _XLA_SUM_WINDOW:
+            return y[0].reshape(lead)
+
+
+def degrees(g: Graph) -> torch.Tensor:
+    """[N] i32 CSR row lengths (padding rows hold 0)."""
+    return g.indptr[1:] - g.indptr[:-1]
+
+
+def sorted_segment_sum(w: torch.Tensor, keys: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """[num_segments]: the sums of ``w`` [L] over the runs of equal ``keys``
+    [L] (i32, ascending, in [0, num_segments)); empty segments give 0.
+
+    Each sum is a loop in entry order on either device (``segment_reduce``
+    of a 2-D tensor; on the card a 1-D one may go to a tree reduction), the
+    order of XLA's CPU scatter-add, so float weights give the reference's
+    bits on both devices (``index_add_`` would add them with atomics on the
+    card).
+    """
+    offsets = _sorted_offsets(keys, num_segments)[: num_segments + 1]
+    return torch.segment_reduce(w[:, None], "sum", offsets=offsets, axis=0,
+                                unsafe=True)[:, 0]
+
+
+def segment_sum(w: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """:func:`sorted_segment_sum` of unsorted i32 ``ids``: a stable sort by
+    id first keeps each segment's entries in entry order."""
+    keys, perm = torch.sort(ids, stable=True)
+    return sorted_segment_sum(w[perm], keys, num_segments)
+
+
+# Whether the weight sums of the current mapping or partition call are exact
+# in any order (see sums_are_exact): the card then takes torch's fast
+# reductions and scans, which add in other orders than the reference. None:
+# not declared (the ordered routes).
+_EXACT_SUMS = contextvars.ContextVar("exact_sums", default=None)
+
+
+def sums_are_exact(g: Graph) -> bool:
+    """True when every sum of vertex weights and every sum of edge weights
+    of ``g`` is exact in float32 whatever the order of the adds: integer
+    weights whose absolute totals are below 2^24 (unit-weight graphs and
+    their contractions). One fetch."""
+    ok = torch.ones((), dtype=torch.bool, device=g.device)
+    for w in (g.vwgt, g.ewgt):
+        ok &= (w == torch.round(w)).all() & (w.abs().sum(dtype=torch.float64) < 2**24)
+    return bool(ok)
+
+
+@contextlib.contextmanager
+def exact_sums(g: Graph):
+    """Declare, for the sums inside (:func:`label_sums`, :func:`xla_sum`,
+    :func:`row_cumsum`, in this thread), whether the weights of ``g`` and of
+    every graph made from it (subgraphs, contractions) are exact in any
+    order (:func:`sums_are_exact`, on the card only). A declaration already
+    in force is kept: a mapping's root covers its partition calls, which
+    then fetch nothing for it."""
+    if _EXACT_SUMS.get() is not None:
+        yield
+        return
+    token = _EXACT_SUMS.set(g.device.type == "cuda" and sums_are_exact(g))
+    try:
+        yield
+    finally:
+        _EXACT_SUMS.reset(token)
+
+
 def label_sums(labels: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
     """[R, k]: for each row r of ``labels`` [R, L], the sum of the weights
     ``w`` ([L] or [R, L]) of the entries labelled b, for b in [0, k);
     entries labelled outside [0, k) add nothing.
 
-    On the CPU each sum runs in entry order (``index_add_``), the
-    reference's order: XLA's CPU scatter applies its updates in order. On
-    the card ``index_add_`` would add floats with atomics, in whatever order
-    the threads arrive; there each sum is a reduction of the masked
-    [R, k, L] weights, whose order the shape fixes. Exact, and equal to the
-    CPU's, while the weights are integers below 2^24.
+    Each sum runs in entry order, the reference's order (XLA's CPU scatter
+    applies its updates in order): on the CPU by ``index_add_``, on the card
+    by :func:`segment_sum` (``index_add_`` would add floats with atomics
+    there, in whatever order the threads arrive). Where :func:`exact_sums`
+    declared the weights exact, the card takes a reduction of the masked
+    [R, k, L] weights instead, far faster and with the same bits.
     """
-    if labels.device.type == "cuda":
+    if labels.device.type != "cuda":
+        return _label_sums_in_order(labels, w, k)
+    if _EXACT_SUMS.get():
         b = torch.arange(k, dtype=labels.dtype, device=labels.device)[None, :, None]
         return torch.where(labels[:, None, :] == b, w.expand(labels.shape)[:, None, :],
                            0.0).sum(-1)
-    return _label_sums_in_order(labels, w, k)
+    R = labels.shape[0]
+    lane = torch.arange(R, dtype=I32, device=labels.device)[:, None] * k
+    flat = torch.where((labels >= 0) & (labels < k), lane + labels, R * k).to(I32)
+    return segment_sum(w.expand(labels.shape).reshape(-1), flat.reshape(-1),
+                       R * k + 1)[: R * k].view(R, k)
 
 
 def _label_sums_in_order(labels: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
@@ -212,27 +319,67 @@ def row_label_sums(g: Graph, labels: torch.Tensor, w: torch.Tensor, k: int) -> t
     return out.view(g.N, R, k).permute(1, 0, 2).contiguous()
 
 
+_XLA_SCAN_BLOCK = 16
+
+
+def _scan_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along a short last axis, one add at a time."""
+    out = [x[..., 0]]
+    for j in range(1, x.shape[-1]):
+        out.append(out[-1] + x[..., j])
+    return torch.stack(out, -1)
+
+
 def row_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """``cumsum`` along the last axis of a 2-D ``x``, in an order fixed by
-    its shape. On the card torch scans the rows of a tensor of several rows
-    with a fixed tree each, but the single row of a ``[1, L]`` tensor with
-    a one-pass look-back scan whose float order changes from run to run; a
-    single row is therefore scanned beside a row of zeros."""
-    if x.device.type == "cuda" and x.shape[0] == 1:
-        return torch.cumsum(torch.cat([x, torch.zeros_like(x)]), dim=-1)[:1]
-    return torch.cumsum(x, dim=-1)
+    """``cumsum`` along the last axis, in the order XLA's CPU compiler adds,
+    on either device.
+
+    XLA scans L > 16 terms in blocks of 16 (the last block padded with
+    zeros): the prefix sums within each block, one add at a time, plus the
+    block's offset, the scan (the same way, recursively) of the preceding
+    blocks' totals. Float sums that are inexact (above 2^24, or fractions)
+    depend on that order: ``torch.cumsum`` adds one after another on the
+    CPU and in a tree, or a look-back scan whose order varies from run to
+    run, on the card. Here every add is an explicit elementwise op, so both
+    devices give the reference's bits. Where :func:`exact_sums` declared the
+    weights exact the card takes ``torch.cumsum``: every order gives the
+    same bits there.
+    """
+    if x.is_cuda and _EXACT_SUMS.get():
+        return torch.cumsum(x, dim=-1)
+    L = x.shape[-1]
+    if L <= _XLA_SCAN_BLOCK:
+        return _scan_in_order(x) if L else x
+    m = -(-L // _XLA_SCAN_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, m * _XLA_SCAN_BLOCK - L))
+    inblock = _scan_in_order(xp.reshape(*x.shape[:-1], m, _XLA_SCAN_BLOCK))
+    before = torch.nn.functional.pad(row_cumsum(inblock[..., -1])[..., :-1], (1, 0))
+    return (inblock + before[..., None]).reshape(*x.shape[:-1], -1)[..., :L]
 
 
 def edge_cut(g: Graph, part: torch.Tensor) -> torch.Tensor:
     """Total weight of cut edges (each undirected edge counted once)."""
     cut = (part[g.rows] != part[g.cols]) & edge_mask(g)
-    return torch.sum(torch.where(cut, g.ewgt, 0.0)) / 2.0
+    return xla_sum(torch.where(cut, g.ewgt, 0.0)) / 2.0
 
 
 def block_weights(g: Graph, part: torch.Tensor, k: int) -> torch.Tensor:
     """[k] f32 total vertex weight per block (padding contributes 0)."""
     safe = torch.where(vertex_mask(g), part, 0)
     return label_sums(safe[None], g.vwgt, k)[0]
+
+
+def quotient_graph_arrays(g: Graph, part: torch.Tensor, num_blocks: int):
+    """Dense quotient adjacency [k, k] + block weights [k] (for small k);
+    each sum in entry order (:func:`segment_sum`)."""
+    k = num_blocks
+    mask = edge_mask(g)
+    pu = torch.where(mask, part[g.rows], 0)
+    pv = torch.where(mask, part[g.cols], 0)
+    w = torch.where(mask & (pu != pv), g.ewgt, 0.0)
+    adj = segment_sum(w, (pu * k + pv).to(I32), k * k).view(k, k)
+    bw = segment_sum(g.vwgt, torch.where(vertex_mask(g), part, 0).to(I32), k)
+    return adj, bw
 
 
 # ---------------------------------------------------------------------------

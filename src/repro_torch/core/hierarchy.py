@@ -144,3 +144,15 @@ def parse_hierarchy(hs: str, ds: str) -> Hierarchy:
     """Parse 'a1:a2:a3' / 'd1:d2:d3' strings (paper notation)."""
     return Hierarchy(a=tuple(int(x) for x in hs.split(":")),
                      d=tuple(float(x) for x in ds.split(":")))
+
+
+def tpu_v5e_hierarchy(multi_pod: bool = False) -> Hierarchy:
+    """The production meshes of this repo as process-mapping hierarchies.
+
+    Single pod : 16 chips/rack x 16 racks      -> H = 16:16,   D = 1:10
+    Multi pod  : ... x 2 pods (DCN)            -> H = 16:16:2, D = 1:10:100
+    (innermost-first, per paper convention).
+    """
+    if multi_pod:
+        return Hierarchy(a=(16, 16, 2), d=(1.0, 10.0, 100.0))
+    return Hierarchy(a=(16, 16), d=(1.0, 10.0))

@@ -32,7 +32,10 @@ def initial_partition(g: Graph, k: int, Lmax: torch.Tensor, salt=0,
     seed_pos = (torch.arange(k, dtype=I32, device=dev) * n) // k
     seed_pos = (seed_pos[None, :] + offset[:, None]) % n
     part = torch.full((R, N), k, dtype=I32, device=dev)   # k == "unassigned"
-    part.scatter_(1, seed_pos.long(), torch.arange(k, dtype=I32, device=dev).expand(R, k))
+    # with n < k seeds share a vertex and the last write wins (XLA's CPU
+    # scatter, in order): the largest block id, on either device
+    part.scatter_reduce_(1, seed_pos.long(), torch.arange(k, dtype=I32, device=dev).expand(R, k),
+                         "amax", include_self=False)
     part = torch.where(vmask, part, k)
 
     # --- greedy growth -------------------------------------------------------

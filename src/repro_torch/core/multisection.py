@@ -49,6 +49,7 @@ for bit, and ``device`` equals its own host twin.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import heapq
 import os
@@ -59,10 +60,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .graph import (F32, I32, Graph, assemble_padded, default_ell_deg,
+from .graph import (F32, I32, Graph, assemble_padded, default_ell_deg, exact_sums,
                     padded_csr_indptr, repad_device, resolve_device, split_blocks,
                     take_lanes)
 from .hierarchy import Hierarchy, adaptive_epsilon, adaptive_epsilon_tensor
+from .coarsen import coarsen_cascade
 from .partition import batched_partition, num_levels, partition
 from .refine import resolve_backend
 
@@ -249,7 +251,7 @@ def _root_op(g: Graph, N0: int, M0: int):
     ar = torch.arange(N0, dtype=I32, device=g.device)
     orig = torch.where(ar < g2.n, ar, g2.n)   # sentinel = n (spare pe slot)
     batch = Graph(*(a[None] for a in g2))
-    return batch, orig[None], torch.sum(g2.vwgt)
+    return batch, orig[None], g2.total_weight()
 
 
 def _split_op(gb: Graph, parts: torch.Tensor, ob: torch.Tensor, arity: int,
@@ -725,12 +727,33 @@ def _partition_one(hg: _HostGraph, k: int, eps_val: float, preset: str, salt: in
     return part[: hg.n]
 
 
+def _coarsen_telemetry_stats(g: Graph, h: Hierarchy) -> dict:
+    """``stats["coarsen"]``: per-level shrink of the ROOT graph's coarsening
+    cascade (the depth and cap of the first sub-partition), measured with
+    :func:`coarsen.coarsen_cascade`: memory that does not grow with the
+    level count, and one fetch of the ``2 * levels`` sizes."""
+    n, m = int(g.n), int(g.m)
+    arity = h.a[h.l - 1] if h.l > 0 else h.k
+    lv = num_levels(n, arity)
+    deg = default_ell_deg(n, max(m, 1))
+    ns, ms = coarsen_cascade(g, lv, ell_deg=deg, device=g.device)
+    _acct(d2h_meta_bytes=ns.nbytes + ms.nbytes, d2h_meta_fetches=1)
+    per = []
+    prev = n
+    for i in range(lv):
+        ni = int(ns[i])
+        per.append({"n": ni, "m": int(ms[i]), "shrink": round(prev / max(ni, 1), 4)})
+        prev = ni
+    return {"levels": lv, "ell_deg": deg, "rounds": 3, "per_level": per}
+
+
 def hierarchical_multisection(g: Graph, h: Hierarchy, eps: float = 0.03,
                               preset: str = "eco", strategy: str = "bucket",
                               seed: int = 0, adaptive: bool = True,
                               backend: str = "auto",
                               checkpoint: Callable[[], None] | None = None,
                               resident: bool | None = None,
+                              coarsen_telemetry: bool = False,
                               device=None) -> MultisectionResult:
     """Partition ``g`` along ``h`` and return the (identity) mapping.
 
@@ -739,59 +762,68 @@ def hierarchical_multisection(g: Graph, h: Hierarchy, eps: float = 0.03,
     task); raising inside it aborts. ``resident`` applies to the planner
     strategies (layer/bucket/device): ``None``/``True`` keeps the level
     loop on the device, ``False`` runs the host-mirror loop (the same
-    results bit for bit).
+    results bit for bit). ``coarsen_telemetry`` also runs the root graph's
+    coarsening cascade for its per-level sizes (``stats["coarsen"]``; one
+    more pass on the device, never a change to the mapping).
     """
     dev = resolve_device(device)
     g = g.to(dev)
     backend = resolve_backend(backend, dev)
-    if strategy in _PLANNER_STRATEGIES:
-        planner = LevelPlanner(g, h, eps=eps, preset=preset, seed=seed,
-                               adaptive=adaptive, backend=backend,
-                               strategy=strategy, resident=resident,
-                               checkpoint=checkpoint)
-        while True:
-            groups = planner.plan()
-            if not groups:
+    with exact_sums(g):   # the root's weights cover every partition call below
+        coarsen_stats = _coarsen_telemetry_stats(g, h) if coarsen_telemetry else None
+        if strategy in _PLANNER_STRATEGIES:
+            planner = LevelPlanner(g, h, eps=eps, preset=preset, seed=seed,
+                                   adaptive=adaptive, backend=backend,
+                                   strategy=strategy, resident=resident,
+                                   checkpoint=checkpoint)
+            while True:
+                groups = planner.plan()
+                if not groups:
+                    break
+                planner.advance([execute_group_batch([gr], dev)[0] for gr in groups])
+            res = planner.result()
+            if coarsen_stats is not None:
+                res.stats["coarsen"] = coarsen_stats
+            return res
+        if strategy not in ("naive", "queue"):
+            raise ValueError(f"unknown strategy {strategy!r}")
+        if resident is not None:
+            raise ValueError(f"resident= applies only to the planner strategies "
+                             f"{_PLANNER_STRATEGIES}; strategy {strategy!r} has "
+                             f"no device-resident variant")
+
+        root = host_graph_from(g)
+        root.depth = h.l
+        pe_of = np.zeros(root.n, np.int32)
+        stats = {"partition_calls": 0, "levels": [], "strategy": strategy,
+                 "padded_vertex_work": 0, "real_vertex_work": 0, "backend": backend}
+        if coarsen_stats is not None:
+            stats["coarsen"] = coarsen_stats
+        rec_lock = threading.Lock()
+
+        def record(batchN, realn):
+            with rec_lock:
+                stats["partition_calls"] += 1
+                stats["padded_vertex_work"] += int(batchN)
+                stats["real_vertex_work"] += int(realn)
+
+        ctx = (h, eps, preset, seed, root.wsum, adaptive, backend, record, checkpoint, dev)
+        current = [root]
+        t0 = time.time()
+        while current:
+            if checkpoint is not None:
+                checkpoint()
+            for hg in current:
+                if hg.depth == 0:
+                    pe_of[hg.orig_ids] = hg.pe_base
+            work = [hg for hg in current if hg.depth > 0]
+            if not work:
                 break
-            planner.advance([execute_group_batch([gr], dev)[0] for gr in groups])
-        return planner.result()
-    if strategy not in ("naive", "queue"):
-        raise ValueError(f"unknown strategy {strategy!r}")
-    if resident is not None:
-        raise ValueError(f"resident= applies only to the planner strategies "
-                         f"{_PLANNER_STRATEGIES}; strategy {strategy!r} has "
-                         f"no device-resident variant")
-
-    root = host_graph_from(g)
-    root.depth = h.l
-    pe_of = np.zeros(root.n, np.int32)
-    stats = {"partition_calls": 0, "levels": [], "strategy": strategy,
-             "padded_vertex_work": 0, "real_vertex_work": 0, "backend": backend}
-    rec_lock = threading.Lock()
-
-    def record(batchN, realn):
-        with rec_lock:
-            stats["partition_calls"] += 1
-            stats["padded_vertex_work"] += int(batchN)
-            stats["real_vertex_work"] += int(realn)
-
-    ctx = (h, eps, preset, seed, root.wsum, adaptive, backend, record, checkpoint, dev)
-    current = [root]
-    t0 = time.time()
-    while current:
-        if checkpoint is not None:
-            checkpoint()
-        for hg in current:
-            if hg.depth == 0:
-                pe_of[hg.orig_ids] = hg.pe_base
-        work = [hg for hg in current if hg.depth > 0]
-        if not work:
-            break
-        lvl_t0 = time.time()
-        current = _run_naive(work, ctx) if strategy == "naive" else _run_queue(work, ctx)
-        stats["levels"].append({"graphs": len(work), "seconds": time.time() - lvl_t0})
-    stats["seconds"] = time.time() - t0
-    return MultisectionResult(pe_of=pe_of, stats=stats)
+            lvl_t0 = time.time()
+            current = _run_naive(work, ctx) if strategy == "naive" else _run_queue(work, ctx)
+            stats["levels"].append({"graphs": len(work), "seconds": time.time() - lvl_t0})
+        stats["seconds"] = time.time() - t0
+        return MultisectionResult(pe_of=pe_of, stats=stats)
 
 
 def _partition_task(hg: _HostGraph, ctx) -> list[_HostGraph]:
@@ -863,7 +895,9 @@ def _run_queue(work, ctx, workers: int | None = None):
                         out.append(c)
                 cv.notify_all()
 
-    threads = [threading.Thread(target=worker) for _ in range(workers)]
+    # each worker runs in a copy of the caller's context (its exact_sums)
+    threads = [threading.Thread(target=contextvars.copy_context().run, args=(worker,))
+               for _ in range(workers)]
     for t in threads:
         t.start()
     for t in threads:

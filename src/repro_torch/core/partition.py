@@ -22,7 +22,8 @@ import math
 import torch
 
 from .coarsen import _i32, coarsen_once
-from .graph import F32, I32, Graph, default_ell_deg, edge_mask, resolve_device
+from .graph import (F32, I32, Graph, default_ell_deg, edge_mask, exact_sums,
+                    resolve_device, xla_sum)
 from .initial import initial_partition
 from .refine import batched_block_weights, lp_refine, rebalance, resolve_backend
 from ..kernels.ref import fma_f32
@@ -76,13 +77,17 @@ def _lmax(g: Graph, k: int, eps: torch.Tensor) -> torch.Tensor:
     return (1.0 + eps) * g.total_weight() / k
 
 
-def _coarsen_levels(g: Graph, levels: int, ell_deg: int | None):
+def _coarsen_levels(g: Graph, levels: int, ell_deg: int | None, coarsen: str = "ell"):
     """The v-cycle's downward half: ``(fines, maps, coarsest)``, every level
     at the shapes (N, M). Its salts depend on the level alone, never on the
     restart, so the restarts of one call share it (the reference recomputes
-    it in each ``vmap`` lane, with the same result). The coarsening kernels
-    use the refinement's ELL cap where the caller pinned one."""
-    deg_c = ell_deg if ell_deg is not None else default_ell_deg(g.N, g.M)
+    it in each ``vmap`` lane, with the same result). ``coarsen="ell"`` runs
+    the coarsening kernels, with the refinement's ELL cap where the caller
+    pinned one; ``"segment"`` the exact segment path, with no cap."""
+    if coarsen not in ("ell", "segment"):
+        raise ValueError(f"coarsen must be 'ell' or 'segment', got {coarsen!r}")
+    deg_c = None if coarsen == "segment" else (
+        ell_deg if ell_deg is not None else default_ell_deg(g.N, g.M))
     fines, maps, cur = [], [], g
     for lvl in range(levels):
         gc, newid = coarsen_once(cur, salt=(lvl + 1) * 131 + 7, ell_deg=deg_c)
@@ -123,17 +128,19 @@ def _partition_restarts(g: Graph, k: int, eps: torch.Tensor, preset: Preset,
 
 def _partition_on(g: Graph, k: int, eps: torch.Tensor, levels: int,
                   preset_name: str, salt: int, backend: str,
-                  ell_deg: int | None) -> torch.Tensor:
+                  ell_deg: int | None, coarsen: str = "ell") -> torch.Tensor:
     preset = Preset.get(preset_name)
     if k == 1:
         return torch.zeros(g.N, dtype=I32, device=g.device)
-    fines, maps, coarsest = _coarsen_levels(g, levels, ell_deg)
-    salts = [_i32(_i32(salt) * 131 + r * 7919) for r in range(preset.restarts)]
-    parts = _partition_restarts(g, k, eps, preset, salts, backend, ell_deg,
-                                fines, maps, coarsest)
-    cut = torch.sum(torch.where((parts[:, g.rows] != parts[:, g.cols]) & edge_mask(g),
-                                g.ewgt, 0.0), dim=-1) / 2.0
-    over = (batched_block_weights(g, parts, k) - _lmax(g, k, eps)).clamp(min=0.0).sum(dim=-1)
+    with exact_sums(g):   # the card's fast sums where every order is exact
+        fines, maps, coarsest = _coarsen_levels(g, levels, ell_deg, coarsen)
+        salts = [_i32(_i32(salt) * 131 + r * 7919) for r in range(preset.restarts)]
+        parts = _partition_restarts(g, k, eps, preset, salts, backend, ell_deg,
+                                    fines, maps, coarsest)
+        cut = xla_sum(torch.where((parts[:, g.rows] != parts[:, g.cols]) & edge_mask(g),
+                                  g.ewgt, 0.0)) / 2.0
+        excess = batched_block_weights(g, parts, k) - _lmax(g, k, eps)
+    over = xla_sum(excess.clamp(min=0.0))   # fractions: XLA's order on either device
     # XLA fuses cut + 1e6 * over into one FMA: round once, as it does
     scores = fma_f32(over, torch.tensor(1e6, dtype=F32, device=g.device), cut)
     return parts[torch.argmin(scores)]
@@ -141,21 +148,25 @@ def _partition_on(g: Graph, k: int, eps: torch.Tensor, levels: int,
 
 def partition(g: Graph, k: int, eps, levels: int, preset_name: str = "eco",
               salt: int = 0, backend: str = "auto", ell_deg: int | None = None,
-              device=None) -> torch.Tensor:
+              coarsen: str = "ell", device=None) -> torch.Tensor:
     """Balanced k-way partition of ``g`` minimizing edge-cut.
 
     The restarts run as a batch; the winner is the best *balanced*
     partition by edge-cut (unbalanced runs are heavily penalized).
     ``ell_deg`` pins the ELL degree cap of the ``"ell"`` refinement and of
     the coarsening; pass one computed from the REAL vertex and edge counts
-    (the default, from the padded shapes, is skewed by the padding). ``g``
-    is moved to ``device`` (``None`` = the card) first.
+    (the default, from the padded shapes, is skewed by the padding).
+    ``coarsen`` picks the coarsening: ``"ell"`` (the kernels) or
+    ``"segment"`` (the exact sort-based path, no cap; the refinement runs
+    the same either way). ``g`` is moved to ``device`` (``None`` = the
+    card) first.
     """
     dev = resolve_device(device)
     g = g.to(dev)
     backend = resolve_backend(backend, dev)
     eps_t = torch.as_tensor(eps, dtype=F32, device=dev)
-    return _partition_on(g, k, eps_t, levels, preset_name, int(salt), backend, ell_deg)
+    return _partition_on(g, k, eps_t, levels, preset_name, int(salt), backend, ell_deg,
+                         coarsen)
 
 
 def batched_partition(gs: Graph, k: int, eps: torch.Tensor, salts: list[int],
@@ -174,7 +185,8 @@ def batched_partition(gs: Graph, k: int, eps: torch.Tensor, salts: list[int],
 
 
 def partition_host(g: Graph, k: int, eps: float, preset: str = "eco", salt: int = 0,
-                   backend: str = "auto", device=None) -> torch.Tensor:
+                   backend: str = "auto", coarsen: str = "ell",
+                   device=None) -> torch.Tensor:
     """:func:`partition` with the level count and ELL cap chosen from the
     REAL sizes, not the padded shapes; the largest degree feeds
     ``num_levels``' matching-stall guard (star-like graphs)."""
@@ -185,4 +197,4 @@ def partition_host(g: Graph, k: int, eps: float, preset: str = "eco", salt: int 
     maxdeg = int((ind[1:n + 1] - ind[:n]).max()) if n > 0 else 0
     lv = num_levels(n, k, max_degree=maxdeg)
     deg = default_ell_deg(n, m) if resolve_backend(backend, dev) == "ell" else None
-    return partition(g, k, eps, lv, preset, salt, backend, deg, device=dev)
+    return partition(g, k, eps, lv, preset, salt, backend, deg, coarsen, device=dev)

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from .graph import (F32, I32, Graph, block_weights, default_ell_deg,
-                    ell_adjacency, label_sums, row_label_sums, vertex_mask)
+                    ell_adjacency, label_sums, row_cumsum, row_label_sums, vertex_mask)
 from ..kernels import ops as kops
 
 _NEG = -1e30
@@ -123,11 +123,11 @@ def _lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _block_prefix(idx: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
     """[R, N] running weight of each entry's own block along each row,
-    ``cumsum(one_hot(idx, k) * w[..., None], axis=-2)[..., i, idx[i]]``.
-    The scan runs along the last axis of an [R, k, N] tensor: along the
-    N axis of [N, k] the card scans each of the k columns with one thread."""
+    ``cumsum(one_hot(idx, k) * w[..., None], axis=-2)[..., i, idx[i]]``,
+    added in the reference's order (``graph.row_cumsum``). The scan runs
+    along the last axis of an [R, k, N] tensor."""
     blocks = torch.arange(k, dtype=idx.dtype, device=idx.device)[:, None]
-    cum = torch.cumsum(torch.where(idx[:, None, :] == blocks, w[:, None, :], 0.0), dim=-1)
+    cum = row_cumsum(torch.where(idx[:, None, :] == blocks, w[:, None, :], 0.0))
     return cum.gather(1, idx.long()[:, None, :])[:, 0, :]
 
 

@@ -199,11 +199,8 @@ def test_device_strategy_depth3_card_equals_cpu(cuda, gen):
 
 @pytest.mark.parametrize("weights", ["integer", "float"])
 def test_label_sums_fixed_order(cuda, weights):
-    """graph.label_sums on the card: one result over five runs; the CPU's
-    (entry order) on integer weights. On float weights each of the 2^17
-    addends a sum takes rounds apart in the two orders; the card's tree is
-    held within rtol 1e-5 of the float64 sum (a tree of depth 20 errs by
-    at most about 20 float32 roundings)."""
+    """graph.label_sums on the card: one result over five runs, the CPU's
+    (entry order) bit for bit, on integer and on float weights."""
     gen = torch.Generator(device="cpu").manual_seed(0)
     labels = torch.randint(-1, 9, (3, 1 << 20), generator=gen, dtype=torch.int32)
     w = torch.randint(1, 50, (1 << 20,), generator=gen).float()
@@ -211,11 +208,7 @@ def test_label_sums_fixed_order(cuda, weights):
         w = w * torch.rand(1 << 20, generator=gen)
     runs = [G.label_sums(labels.to(cuda), w.to(cuda), 8) for _ in range(5)]
     assert all(torch.equal(r, runs[0]) for r in runs)
-    if weights == "integer":
-        assert torch.equal(runs[0].cpu(), G.label_sums(labels, w, 8))
-    else:
-        exact = G.label_sums(labels, w.double(), 8)
-        torch.testing.assert_close(runs[0].cpu().double(), exact, rtol=1e-5, atol=0.0)
+    assert torch.equal(runs[0].cpu(), G.label_sums(labels, w, 8))
 
 
 def test_row_cumsum_fixed_order(cuda):
@@ -591,3 +584,82 @@ def test_flash_attention_gqa_route_counts(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     assert _build.LAUNCHES["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize("weights", ["unit", "float"])
+@pytest.mark.parametrize("backend", ["ell", "xla"])
+def test_segment_partition_card_equals_cpu(cuda, backend, weights):
+    """partition_host(coarsen="segment") on the card gives the CPU's
+    partition; on float weights two card runs give one."""
+    from repro_torch.core.partition import partition_host
+    g = G.gen_rgg(4000, seed=2, device="cpu")
+    if weights == "float":
+        g = G.float_weights(g, seed=5)
+    want = partition_host(g, 4, 0.03, "fast", 1, backend, coarsen="segment", device="cpu")
+    runs = [partition_host(g, 4, 0.03, "fast", 1, backend, coarsen="segment", device=cuda)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0].cpu(), want)
+
+
+def test_float_contract_and_quotient_one_answer(cuda):
+    """The segment path's float sums by label (contract's vertex and edge
+    weights, quotient_graph_arrays) run in entry order on the card: two runs
+    give one answer, the CPU's."""
+    from repro_torch.core.coarsen import contract, hem_match
+    g = G.float_weights(G.gen_rgg(20000, seed=4, device="cpu"), seed=1)
+    gd = g.to(cuda)
+    part = torch.randint(0, 7, (g.N,), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    want_c = contract(g, hem_match(g, salt=5))
+    want_q = G.quotient_graph_arrays(g, part, 7)
+    for _ in range(2):
+        gc, newid = contract(gd, hem_match(gd, salt=5))
+        assert torch.equal(newid.cpu(), want_c[1])
+        for a, b in zip(gc, want_c[0]):
+            assert torch.equal(a.cpu(), b)
+        for a, b in zip(G.quotient_graph_arrays(gd, part.to(cuda), 7), want_q):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_xla_order_sums_card_equals_cpu(cuda):
+    """graph.xla_sum and graph.row_cumsum add in one fixed order (XLA's CPU
+    order) on both devices: float values over a wide range give the CPU's
+    bits on the card."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    x = torch.rand(3, 100_003, generator=gen) * 10.0 ** torch.randint(0, 9, (3, 100_003),
+                                                                      generator=gen)
+    assert torch.equal(G.xla_sum(x.to(cuda)).cpu(), G.xla_sum(x))
+    assert torch.equal(G.row_cumsum(x.to(cuda)).cpu(), G.row_cumsum(x))
+
+
+def test_label_sums_card_equals_cpu(cuda):
+    """Undeclared, the card adds each label's float weights in entry order
+    (segment_sum): the CPU's bits. Under exact_sums of a unit-weight graph
+    the masked reduction gives the same bits on integer weights."""
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    labels = torch.randint(-1, 9, (2, 300_000), generator=gen, dtype=torch.int32)
+    w = torch.rand(300_000, generator=gen) * 10.0 ** torch.randint(0, 9, (300_000,),
+                                                                   generator=gen)
+    assert torch.equal(G.label_sums(labels.to(cuda), w.to(cuda), 8).cpu(),
+                       G.label_sums(labels, w, 8))
+    wi = torch.randint(1, 50, (300_000,), generator=gen).float()
+    g = G.gen_rgg(3000, seed=1, device=cuda)
+    assert G.sums_are_exact(g) and not G.sums_are_exact(G.float_weights(g, seed=2))
+    with G.exact_sums(g):
+        got = G.label_sums(labels.to(cuda), wi.to(cuda), 8)
+    assert torch.equal(got.cpu(), G.label_sums(labels, wi, 8))
+
+
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_initial_partition_seeds_card_equals_cpu(cuda, n):
+    """Fewer vertices than blocks: seeds share vertices, and the card keeps
+    the CPU's (the reference's) last-written seed, not whichever write
+    lands last."""
+    from repro_torch.core.initial import initial_partition
+    g = G.from_edges(n, np.arange(n - 1), np.arange(1, n), N=8, M=8, device="cpu")
+    for salt in (0, 5, 12):
+        want = initial_partition(g, 16, torch.tensor(100.0), salt=salt, backend="xla")
+        got = initial_partition(g.to(cuda), 16, torch.tensor(100.0, device=cuda), salt=salt,
+                                backend="xla")
+        assert torch.equal(got.cpu(), want)

@@ -287,7 +287,9 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.serve.engine, repro_torch.configs.registry, "
             "repro_torch.core.baselines, repro_torch.core.taskgraph, repro_torch.faults, "
             "repro_torch.serve.tracker, repro_torch.serve.admission, repro_torch.serve.store, "
-            "repro_torch.serve.mapper, repro_torch.serve.supervisor; "
+            "repro_torch.serve.mapper, repro_torch.serve.supervisor, "
+            "repro_torch.launch.hlo_analysis, repro_torch.launch.comm_graph, "
+            "repro_torch.launch.mesh; "
             "[repro_torch.configs.registry.get_config(a) for a in "
             "repro_torch.configs.registry.ARCHS]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
@@ -319,6 +321,12 @@ def test_entry_points_need_the_card_unless_told():
         partition(g, 2, 0.03, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_J(g, h, np.zeros(36, np.int32))
+    from repro_torch.core.coarsen import coarsen_cascade
+    from repro_torch.core.partition import partition_host
+    with pytest.raises(RuntimeError, match="CUDA"):
+        partition_host(g, 2, 0.03, coarsen="segment")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        coarsen_cascade(g, 2)
     from repro_torch.serve.mapper import MappingService
     with pytest.raises(RuntimeError, match="CUDA"):
         MappingService()

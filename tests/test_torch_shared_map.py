@@ -90,18 +90,13 @@ def test_hierarchy_helpers():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"strategy": "layer", "coarsen_telemetry": True}, NotImplementedError),
-    ({"strategy": "queue", "coarsen_telemetry": True}, NotImplementedError),
     ({"strategy": "nope"}, ValueError),
-    ({"backend": "ell", "strategy": "naive", "coarsen_telemetry": True}, NotImplementedError),
-    ({"refine_mapping": True, "coarsen_telemetry": True}, NotImplementedError),
-    ({"coarsen_telemetry": True}, NotImplementedError),
 ])
 def test_parts_not_in_this_slice_raise(kw, exc):
-    """Every strategy and backend is ported now, and ``refine_mapping``
-    (tests/test_torch_mapping.py); the option that is not
-    (``coarsen_telemetry``) raises under any of them, with or without
-    ``refine_mapping``."""
+    """Every strategy, backend and option is ported now: ``refine_mapping``
+    (tests/test_torch_mapping.py) and ``coarsen_telemetry``, whose cases
+    moved to tests/test_torch_coarsen_segment.py as parity cases. An
+    unknown strategy still raises."""
     g = TG.gen_grid(8, device="cpu")
     with pytest.raises(exc):
         shared_map(g, Hierarchy((2, 2), (1.0, 10.0)), SharedMapConfig(**kw), device="cpu")
