@@ -19,13 +19,13 @@
    with float weights (``graph.float_weights``): two card runs give one
    ``pe_of`` and one J, and the card's ``pe_of`` is compared with the
    CPU's.
-4. Runs the other strategies on the card at ``gen_rgg(2**15)`` on 4:8:6
-   (cut from 2^16 for the smoke's time): ``device`` equals its
+4. Runs the other strategies on the card at ``gen_rgg(2**15)`` on 4:8
+   (cut from 2^16 and 4:8:6 for the smoke's time): ``device`` equals its
    ``resident=False`` twin with one array fetch, ``layer`` runs, ``naive``
-   equals ``bucket``, and two ``xla`` runs give one ``pe_of``; ``queue``
-   equals ``naive`` on 4:8 (cut from 4:8:6). The ``device`` strategy on
-   four levels (2:2:2:2), whose children at depth 3 reach the ``powf``
-   kernel, equals the CPU's on grid 32x32 and rgg 2000; the ``powf``
+   equals ``bucket``, ``queue`` equals ``naive``, and two ``xla`` runs give
+   one ``pe_of``. The ``device`` strategy on four levels (2:2:2:2), whose
+   children at depth 3 reach the ``powf`` kernel, fetches one array and
+   equals the CPU's on grid 32x32 and rgg 2000; the ``powf``
    kernel is held bitwise against its plain version.
 5. Profiles the root's partition call under ``ell`` and under ``xla``
    (device busy share, device ops, top kernels).
@@ -75,7 +75,8 @@
    kernels; a repeat is a cache hit, and a second service on the same store
    serves it as a store hit. The seconds of the host fetch and the hash of
    the fingerprint are printed. (c) Two ``gen_rgg(2**14)`` requests on
-   4:8:6 submitted together against two direct calls one after another.
+   4:8 (cut from 4:8:6) submitted together against two direct calls one
+   after another.
    (d) Worker mode: two worker processes on the card answer (c)'s two
    requests (``backend`` ``ell``, the direct ``pe_of``), then a worker
    killed on its first dispatch (``FaultInjector``, ``worker_kill``) is
@@ -120,8 +121,26 @@
     on the q [B, S, H, D] and k/v [B, S, Hkv, D] of layer 0 of that prefill,
     as the model hands them over, and on small shapes: f32, and bf16 at D
     12, 64 and 256 with three query heads per KV head.
-11. Prints one JSON line with every kernel's numbers, then the contract's
-    last line. Any failed check raises, and the script exits non-zero.
+11. The rest of the model zoo. (a) The smoke configs of moonshot, mixtral,
+    jamba, xlstm, whisper and internvl2 on the card against the CPU:
+    ``prefill_fn`` (through flash where the family takes it), 8
+    ``decode_fn`` steps and ``loss_fn`` at atol 0.15 rtol 0.1; the MoE
+    smoke model on duplicate batch rows, equal row for row and over two
+    runs. (b) moonshot-v1-16b-a3b at full width, depth cut to 8 layers:
+    ``prefill_fn`` on B = 4 x S = 4096 through flash (8 launches) and
+    ``_sdpa``, the ``Engine`` (4 prompts of 32 tokens, 32 greedy steps), its
+    last prompt step against a flash prefill, ``loss_fn`` on 1 x 2048, one
+    prefill profiled. Two runs that round bf16 apart may route a near-tied
+    token to other experts, so the second run of each pair takes the first
+    run's expert choices and prints how many of its own would have differed
+    (``_Routes``). (c) xlstm-125m whole (prefill 4 x 1024 at slstm_chunk 1
+    and 8, equal bit for bit; an Engine run), whisper-tiny whole (the
+    memory K/V of 4 x 1,500 frames; an Engine run), mixtral-8x22b at 2
+    layers (prefill 1 x 8192, sliding window 4096) and jamba-v0.1-52b at one
+    super-block (prefill 1 x 4096) at full width.
+12. Prints one JSON line with every kernel's numbers (flash's launches by
+    path), then the contract's last line. Any failed check raises, and the
+    script exits non-zero.
 
 It needs a CUDA device and the repository's ``src/``; without either it
 exits with code 2 and prints no result. It imports nothing of JAX.
@@ -146,7 +165,10 @@ RGG_N = 2**20
 # the device strategy keeps every lane at the root's shape; cut from 2^16 for
 # the smoke's time limit
 RGG_N_STRATEGIES = 2**15
-QUEUE_HIERARCHY = ("4:8", "1:10")   # the queue strategy's run, cut from 4:8:6
+# phase 4's strategies and phase 8 (c)-(e), cut from 4:8:6 for the smoke's time
+# limit: their time follows their partition calls (9 on 4:8, 55 on 4:8:6);
+# the device strategy's one fetch over more levels is held on 2:2:2:2
+STRATEGY_HIERARCHY = ("4:8", "1:10")
 HIERARCHY = ("4:8:6", "1:10:100")
 TPU_KERNELS = {   # the TPU kernel each CUDA kernel replaces (wrapper def line)
     "gather_rows": "src/repro/kernels/split.py:34",
@@ -579,6 +601,439 @@ def _serving_path(dev, check, _build) -> int:
     return ln_f["flash_attention"]
 
 
+# ---- phase 11: the rest of the model zoo ---------------------------------------
+
+ZOO = ("moonshot-v1-16b-a3b", "mixtral-8x22b", "jamba-v0.1-52b", "xlstm-125m",
+       "whisper-tiny", "internvl2-76b")
+ZOO_FLASH = {"moonshot-v1-16b-a3b", "mixtral-8x22b", "jamba-v0.1-52b", "internvl2-76b"}
+ZOO_STEPS = 8                       # decode steps of (a)
+MOE_ARCH, MOE_LAYERS = "moonshot-v1-16b-a3b", 8            # depth cut from 48
+MOE_ENGINE_B, MOE_ENGINE_P, MOE_ENGINE_STEPS, MOE_ENGINE_MAX_LEN = 4, 32, 32, 128
+MOE_LOSS_B, MOE_LOSS_S = 1, 2048
+XLSTM_B, XLSTM_S, XLSTM_CHUNKS = 4, 1024, (1, 8)
+WHISPER_B, WHISPER_T = 4, 1500
+ZOO_ENGINE_B, ZOO_ENGINE_P, ZOO_ENGINE_STEPS = 4, 16, 16   # xlstm and whisper engines
+MIXTRAL_LAYERS, MIXTRAL_S = 2, 8192                        # depth cut from 56
+JAMBA_LAYERS, JAMBA_S = 8, 4096                            # one super-block (of 4)
+
+
+class _Routes:
+    """The MoE's discrete choices of one run, replayed in another.
+
+    ``moe.moe_ffn_shard`` makes two top-k choices per call, in this order:
+    each token's top-k experts (the router) and each expert's top-C tokens
+    (the capacity cut). Two runs of one MoE model that round bf16 in other
+    places (the card and the CPU; flash and ``_sdpa``; a prefill and the
+    Engine's decode steps) may break a near-tie in either the other way
+    (ROADMAP Queue 3): with 64 experts top-6 the router's bf16 logits tie
+    often, and one flip moves logits by more than the tolerance. To hold
+    the rest of the two computations against each other, the second run
+    takes the first run's choices (the values at them from its own
+    inputs), and counts the choices its own top-k would have changed:
+    (token, expert) pairs for the router, (expert, token) pairs for the
+    capacity cut."""
+
+    def __init__(self, moe):
+        self.moe, self.orig = moe, moe.top_k
+        self.calls, self.flips = [], [0, 0]
+
+    def record(self):
+        def rec(x, k):
+            out = self.orig(x, k)
+            self.calls.append(out[1])
+            return out
+        self.calls = []
+        self.moe.top_k = rec
+        return self
+
+    def replay(self, router=None):
+        """Call i takes the i-th recorded call's indices; with ``router``,
+        the router's l-th call (call 2l) takes ``router(l)`` and the
+        capacity cuts run as they are."""
+        count = [0]
+
+        def rep(x, k):
+            i, count[0] = count[0], count[0] + 1
+            own = self.orig(x, k)[1]
+            if router is not None:
+                if i % 2:
+                    return self.orig(x, k)
+                idx = router(i // 2)
+            else:
+                idx = self.calls[i]
+            idx = idx.to(own.device)
+            if idx.shape != own.shape:
+                raise AssertionError(f"routes: call {i} has {tuple(own.shape)}, replayed "
+                                     f"{tuple(idx.shape)}")
+            self.flips[i % 2] += int((own[:, :, None] != idx[:, None, :]).all(-1).sum())
+            return x.gather(-1, idx), idx
+        self.flips = [0, 0]
+        self.moe.top_k = rep
+        return self
+
+    def said(self):
+        return (f"{self.flips[0]} router (token, expert) and {self.flips[1]} capacity "
+                f"(expert, token) choices")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k = self.orig
+
+
+def _zoo_batch(cfg, B, S, seed, dev):
+    """Tokens, labels and the stub frontends' inputs, from a seed (frames of
+    S positions with 16 target tokens; num_patches patches before S text
+    tokens)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    b = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab_size, (B, S))),
+         "labels": torch.as_tensor(rng.integers(1, cfg.vocab_size, (B, S)))}
+    if cfg.frontend == "vision_stub":
+        b["patch_embeds"] = torch.as_tensor(
+            rng.standard_normal((B, cfg.num_patches, cfg.d_model)) * 0.02).to(torch.bfloat16)
+    if cfg.is_encoder_decoder:
+        b["frames"] = torch.as_tensor(
+            rng.standard_normal((B, S, cfg.d_model)) * 0.02).to(torch.bfloat16)
+        b["tokens"], b["labels"] = b["tokens"][:, :16], b["labels"][:, :16]
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+def _held(what, got, want, atol=LOGITS_ATOL, rtol=LOGITS_RTOL):
+    """Raise unless ``got`` (card) and ``want`` agree; print the difference."""
+    import torch
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    diff = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float().cpu(), b.float().cpu()
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: shape {tuple(a.shape)} against {tuple(b.shape)}, "
+                                 "or not finite")
+        diff = max(diff, float((a - b).abs().max()))
+        if not torch.allclose(a, b, atol=atol, rtol=rtol):
+            over = (a - b).abs() > atol + rtol * b.abs()
+            worst = int(((a - b).abs() - atol - rtol * b.abs()).argmax())
+            raise AssertionError(
+                f"{what}: max abs diff {diff:.4g} (atol {atol} rtol {rtol}); "
+                f"{int(over.sum())} of {a.numel()} values outside, the worst "
+                f"{float(a.flatten()[worst]):.4g} against {float(b.flatten()[worst]):.4g}")
+    return diff
+
+
+def _zoo_small(dev, _build, moe) -> None:
+    """Phase 11 (a): each new family's smoke config on the card against the
+    CPU (prefill_fn, 8 decode_fn steps, loss_fn), and the MoE combine on
+    duplicate batch rows."""
+    import copy
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as MM
+    from repro_torch.models.sharding import ShardCtx
+    ctx = ShardCtx(use_flash=True)
+    for arch in ZOO:
+        cfg = get_smoke_config(arch)
+        p_cpu = MM.init_fn(cfg, torch.Generator(device="cpu").manual_seed(0))
+        p_dev = copy.deepcopy(p_cpu).to(dev)
+        b_cpu = _zoo_batch(cfg, 2, 64, 1, "cpu")
+        b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+        routes = _Routes(moe)
+        with routes.record():
+            want = MM.prefill_fn(cfg, p_cpu, b_cpu, ctx)
+            caches = [MM.init_cache(cfg, 2, 16, device=d) for d in ("cpu", dev)]
+            if cfg.is_encoder_decoder:   # memory K/V of 16 frames from each side
+                fr = _zoo_batch(cfg, 2, 16, 2, "cpu")
+                caches[0]["mem_kv"] = MM.prefill_fn(cfg, p_cpu, fr)
+            toks = _zoo_batch(cfg, 2, ZOO_STEPS, 3, "cpu")["tokens"]
+            want_steps = [MM.decode_fn(cfg, p_cpu, toks[:, i:i + 1], caches[0], i)[0]
+                          for i in range(ZOO_STEPS)]
+            want_loss = MM.loss_fn(cfg, p_cpu, b_cpu)
+        expect = ["flash_attention"] if arch in ZOO_FLASH else []
+        with routes.replay():
+            got, t_p, ln = _run_path(f"{arch} smoke prefill", lambda: MM.prefill_fn(
+                cfg, p_dev, b_dev, ctx), expect, _build)
+            if cfg.is_encoder_decoder:
+                caches[1]["mem_kv"] = MM.prefill_fn(cfg, p_dev, {k: v.to(dev)
+                                                                 for k, v in fr.items()})
+            got_steps = [MM.decode_fn(cfg, p_dev, toks[:, i:i + 1].to(dev), caches[1], i)[0]
+                         for i in range(ZOO_STEPS)]
+            got_loss = MM.loss_fn(cfg, p_dev, b_dev)
+        d_p = _held(f"{arch} smoke prefill_fn", got, want)
+        d_d = max(_held(f"{arch} smoke decode step {i}", g, w)
+                  for i, (g, w) in enumerate(zip(got_steps, want_steps)))
+        _held(f"{arch} smoke loss_fn", got_loss, want_loss)
+        print(f"{arch} smoke ({cfg.family}): card against CPU, prefill_fn B=2 S=64 max abs "
+              f"diff {d_p:.4g} ({t_p:.3f} s, flash launches {ln['flash_attention']}), "
+              f"{ZOO_STEPS} decode_fn steps {d_d:.4g}, loss_fn {float(got_loss):.6f} against "
+              f"{float(want_loss):.6f}; on the CPU's MoE choices, the card's own would have "
+              f"changed {routes.said()}; atol {LOGITS_ATOL} rtol {LOGITS_RTOL}", flush=True)
+    # duplicate batch rows through the MoE smoke model on the card
+    cfg = get_smoke_config(MOE_ARCH)
+    p = MM.init_fn(cfg, torch.Generator(device=dev).manual_seed(0))
+    t = _zoo_batch(cfg, 2, 64, 4, dev)["tokens"]
+    rows = {"tokens": torch.cat([t, t])}   # rows 0, 1 again as rows 2, 3
+    a, b = (MM.prefill_fn(cfg, p, rows, ctx) for _ in range(2))
+    if not (torch.equal(a, b) and torch.equal(a[:2], a[2:])):
+        raise AssertionError("MoE smoke prefill: duplicate rows or two runs differ")
+    print(f"{cfg.name} prefill_fn on the card, rows [r0, r1, r0, r1]: equal row for row, "
+          f"and equal over two runs", flush=True)
+
+
+def _zoo_moonshot(dev, _build, moe) -> int:
+    """Phase 11 (b): moonshot-v1-16b-a3b at full width, 8 layers: prefill
+    (flash and _sdpa), the Engine, the loss, a profile. Returns the flash
+    launches of one prefill."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as MM
+    from repro_torch.models.sharding import ShardCtx
+    from repro_torch.serve.engine import Engine
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = MM.init_fn(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(w.numel() for w in params.parameters())
+    print(f"{MOE_ARCH}: {cfg.num_layers} layers (cut from 48), d_model {cfg.d_model}, heads "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, {cfg.num_experts} "
+          f"experts top-{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} params "
+          f"(f32, {4 * n_params / 1e9:.2f} GB) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    B, S = PREFILL_B, PREFILL_S
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)),
+                             device=dev)
+    flash, dense = ShardCtx(use_flash=True), ShardCtx()
+    MM.prefill_fn(cfg, params, {"tokens": tokens[:, :256]}, flash)   # warm-up
+
+    def prefill(ctx):
+        torch.cuda.reset_peak_memory_stats()
+        out = MM.prefill_fn(cfg, params, {"tokens": tokens}, ctx)
+        return out, torch.cuda.max_memory_allocated()
+    from repro_torch.models.moe import capacity
+    routes = _Routes(moe)
+    with routes.record():
+        (lf, peak_f), t_f, ln_f = _run_path(f"{MOE_ARCH} prefill, flash",
+                                            lambda: prefill(flash), ["flash_attention"], _build)
+    with routes.replay():
+        (ld, peak_d), t_d, ln_d = _run_path(f"{MOE_ARCH} prefill, _sdpa",
+                                            lambda: prefill(dense), [], _build)
+    if ln_f["flash_attention"] != cfg.num_layers or ln_d["flash_attention"] != 0:
+        raise AssertionError(f"flash launches {ln_f['flash_attention']} (flash) and "
+                             f"{ln_d['flash_attention']} (_sdpa), expected {cfg.num_layers}, 0")
+    for label, t, pk in (("flash", t_f, peak_f), ("_sdpa", t_d, peak_d)):
+        print(f"prefill_fn {MOE_ARCH} B={B} S={S} (T {B * S}, capacity C "
+              f"{capacity(cfg, B * S)} per expert), {label}: {t:.3f} s, {B * S / t:.0f} "
+              f"tokens/s, peak memory {pk} B", flush=True)
+    d = _held(f"{MOE_ARCH} prefill logits, flash against _sdpa", lf, ld)
+    print(f"prefill logits {MOE_ARCH}, flash against _sdpa (the _sdpa run on the flash run's "
+          f"MoE choices): max abs diff {d:.4g}, argmax agreement "
+          f"{float((lf.argmax(-1) == ld.argmax(-1)).float().mean()):.2f}; _sdpa's own would "
+          f"have changed {routes.said()} of {B * S * cfg.top_k * cfg.num_layers} routed; flash "
+          f"launches {ln_f['flash_attention']}; atol {LOGITS_ATOL} rtol {LOGITS_RTOL}",
+          flush=True)
+    del lf, ld
+    torch.cuda.empty_cache()
+
+    # the Engine; its last prompt step held against a flash prefill of the
+    # prompts that drops no token by capacity (the Engine's steps, T = B = 4
+    # tokens, drop none) on the Engine's expert choices
+    Bp, P = MOE_ENGINE_B, MOE_ENGINE_P
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (Bp, P))
+    eng = Engine(cfg, params, max_len=MOE_ENGINE_MAX_LEN)
+    prompt_logits = []
+    orig_decode = MM.decode_fn
+
+    def keep_last_prompt_step(cfg_, p, t, cache, pos, ctx=None):
+        out = orig_decode(cfg_, p, t, cache, pos, ctx)
+        if pos == P - 1:
+            prompt_logits.append(out[0].clone())
+        return out
+    MM.decode_fn = keep_last_prompt_step
+    try:
+        with routes.record():
+            (gen_toks, stats), t_e, _ = _run_path(
+                f"{MOE_ARCH} engine", lambda: eng.generate(prompts, MOE_ENGINE_STEPS), [],
+                _build)
+    finally:
+        MM.decode_fn = orig_decode
+    if gen_toks.shape != (Bp, MOE_ENGINE_STEPS) or not (
+            (gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all():
+        raise AssertionError(f"engine tokens: shape {gen_toks.shape} or out of range")
+    print(f"engine {MOE_ARCH} B={Bp} prompt {P} steps {MOE_ENGINE_STEPS} max_len "
+          f"{MOE_ENGINE_MAX_LEN}: prompt (stepped) {stats.prefill_s:.3f} s, decode "
+          f"{stats.decode_s:.3f} s, {stats.tok_per_s:.1f} tok/s, {t_e:.3f} s in all; first "
+          f"tokens {gen_toks[:, :6].tolist()}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    nodrop = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    L = cfg.num_layers
+    steps = routes.calls[::2]   # router choices [B, K] per (prompt position, layer), ...
+
+    def by_position(layer):     # the prefill's tokens are b-major: row b * P + s
+        return torch.stack([steps[s * L + layer] for s in range(P)], dim=1).reshape(Bp * P, -1)
+    with routes.replay(by_position):
+        pf = MM.prefill_fn(nodrop, params, {"tokens": torch.as_tensor(prompts, device=dev)},
+                           flash)
+    d = _held(f"{MOE_ARCH} flash prefill against the engine's last prompt step", pf,
+              prompt_logits[0])
+    print(f"flash prefill_fn {MOE_ARCH} ({Bp} x {P} tokens, capacity factor "
+          f"{nodrop.capacity_factor:.4g}: C = T, nothing dropped) against the engine's last "
+          f"prompt step, on the engine's expert choices: max abs diff {d:.4g}, argmax "
+          f"agreement {float((pf.argmax(-1) == prompt_logits[0].argmax(-1)).float().mean()):.2f}"
+          f"; the prefill's own would have changed {routes.said()} of "
+          f"{Bp * P * cfg.top_k * L} routed; atol {LOGITS_ATOL} rtol {LOGITS_RTOL}", flush=True)
+
+    # the loss, then one flash prefill profiled
+    b = _zoo_batch(cfg, MOE_LOSS_B, MOE_LOSS_S, 5, dev)
+    loss, t_l, _ = _run_path(f"{MOE_ARCH} loss_fn", lambda: MM.loss_fn(cfg, params, b), [],
+                             _build)
+    if not torch.isfinite(loss):
+        raise AssertionError(f"{MOE_ARCH} loss_fn: {float(loss)}")
+    print(f"loss_fn {MOE_ARCH} B={MOE_LOSS_B} S={MOE_LOSS_S}: {float(loss):.6f} (ln V = "
+          f"{np.log(cfg.vocab_size):.4f}), {t_l:.3f} s", flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        MM.prefill_fn(cfg, params, {"tokens": tokens}, flash)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    print(f"profile: prefill_fn {MOE_ARCH} flash B={B} S={S}: wall {wall:.3f} s under the "
+          f"profiler, device busy {busy_us / 1e6:.3f} s ({100 * busy_us / 1e6 / wall:.1f}%), "
+          f"{sum(e.count for e in events)} device ops", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"profile:   {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d}x  "
+              f"{e.key[:90]}", flush=True)
+    del prof, events, params, tokens
+    torch.cuda.empty_cache()
+    return ln_f["flash_attention"]
+
+
+def _zoo_others(dev, _build) -> dict:
+    """Phase 11 (c): xlstm-125m and whisper-tiny whole, mixtral-8x22b (2
+    layers) and jamba-v0.1-52b (one super-block) at full width. Returns the
+    flash launches of each prefill."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as MM
+    from repro_torch.models.sharding import ShardCtx
+    from repro_torch.serve.engine import Engine
+    launches = {}
+
+    def engine(arch, cfg, params):
+        prompts = np.random.default_rng(2).integers(0, cfg.vocab_size,
+                                                    (ZOO_ENGINE_B, ZOO_ENGINE_P))
+        (toks, st), t, _ = _run_path(f"{arch} engine", lambda: Engine(
+            cfg, params, max_len=ZOO_ENGINE_P + ZOO_ENGINE_STEPS).generate(
+                prompts, ZOO_ENGINE_STEPS), [], _build)
+        if toks.shape != (ZOO_ENGINE_B, ZOO_ENGINE_STEPS) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{arch} engine tokens: shape {toks.shape} or out of range")
+        print(f"engine {arch} B={ZOO_ENGINE_B} prompt {ZOO_ENGINE_P} steps {ZOO_ENGINE_STEPS}: "
+              f"prompt (stepped) {st.prefill_s:.3f} s, decode {st.decode_s:.3f} s, "
+              f"{st.tok_per_s:.1f} tok/s, {t:.3f} s in all", flush=True)
+
+    def drawn(arch, cfg, cut):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = MM.init_fn(cfg, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n = sum(w.numel() for w in params.parameters())
+        print(f"{arch}: {cfg.num_layers} layers{cut}, d_model {cfg.d_model}; {n} params (f32, "
+              f"{4 * n / 1e9:.2f} GB) drawn on the card in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        return params
+
+    # xlstm-125m whole: the sLSTM time scan at slstm_chunk 1 and 8
+    cfg = get_config("xlstm-125m")
+    params = drawn("xlstm-125m", cfg, "")
+    b = _zoo_batch(cfg, XLSTM_B, XLSTM_S, 6, dev)
+    outs = []
+    for chunk in XLSTM_CHUNKS:
+        out, t, _ = _run_path(f"xlstm-125m prefill, slstm_chunk {chunk}", lambda: MM.prefill_fn(
+            cfg, params, b, ShardCtx(slstm_chunk=chunk)), [], _build)
+        outs.append(out)
+        print(f"prefill_fn xlstm-125m B={XLSTM_B} S={XLSTM_S} slstm_chunk {chunk}: {t:.3f} s, "
+              f"{XLSTM_B * XLSTM_S / t:.0f} tokens/s", flush=True)
+    if not all(torch.equal(o, outs[0]) for o in outs) or not torch.isfinite(outs[0].float()).all():
+        raise AssertionError("xlstm-125m: slstm_chunk 1 and 8 differ, or not finite")
+    print(f"xlstm-125m: prefill logits at slstm_chunk {XLSTM_CHUNKS} equal bit for bit",
+          flush=True)
+    engine("xlstm-125m", cfg, params)
+    del params, outs
+    torch.cuda.empty_cache()
+
+    # whisper-tiny whole: the decoder's memory K/V of 1,500 frames
+    cfg = get_config("whisper-tiny")
+    params = drawn("whisper-tiny", cfg, "")
+    frames = _zoo_batch(cfg, WHISPER_B, WHISPER_T, 7, dev)
+    (mk, mv), t, _ = _run_path("whisper-tiny prefill_memory", lambda: MM.prefill_fn(
+        cfg, params, frames), [], _build)
+    want = (cfg.num_layers, WHISPER_B, WHISPER_T, cfg.num_kv_heads, cfg.head_dim)
+    if mk.shape != want or mv.shape != want or not (
+            torch.isfinite(mk.float()).all() and torch.isfinite(mv.float()).all()):
+        raise AssertionError(f"whisper-tiny memory K/V: {tuple(mk.shape)} or not finite")
+    print(f"prefill_fn whisper-tiny B={WHISPER_B} frames {WHISPER_T}: memory K/V "
+          f"{list(mk.shape)} x 2 in {t:.3f} s, {WHISPER_B * WHISPER_T / t:.0f} frames/s",
+          flush=True)
+    engine("whisper-tiny", cfg, params)
+    del params, mk, mv
+    torch.cuda.empty_cache()
+
+    # mixtral-8x22b and jamba-v0.1-52b at full width, depth cut: prefill only
+    for arch, layers, S in (("mixtral-8x22b", MIXTRAL_LAYERS, MIXTRAL_S),
+                            ("jamba-v0.1-52b", JAMBA_LAYERS, JAMBA_S)):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers)
+        params = drawn(arch, cfg, f" (cut from {full.num_layers})")
+        tokens = {"tokens": torch.as_tensor(np.random.default_rng(8).integers(
+            0, cfg.vocab_size, (1, S)), device=dev)}
+
+        def prefill():
+            torch.cuda.reset_peak_memory_stats()
+            out = MM.prefill_fn(cfg, params, tokens, ShardCtx(use_flash=True))
+            return out, torch.cuda.max_memory_allocated()
+        (out, peak), t, ln = _run_path(f"{arch} prefill, flash", prefill, ["flash_attention"],
+                                       _build)
+        kinds = cfg.layer_kinds()   # one attention sub-layer per super-block
+        n_attn = sum(k.startswith("attn") for k in kinds) * (layers // len(kinds))
+        if ln["flash_attention"] != n_attn or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"{arch}: flash launches {ln['flash_attention']} (expected "
+                                 f"{n_attn}) or logits not finite")
+        launches[f"{arch} prefill"] = ln["flash_attention"]
+        print(f"prefill_fn {arch} B=1 S={S} flash (window {cfg.sliding_window}): {t:.3f} s, "
+              f"{S / t:.0f} tokens/s, peak memory {peak} B, flash launches "
+              f"{ln['flash_attention']}", flush=True)
+        del params, out
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _zoo_path(dev, _build) -> dict:
+    """Phase 11: the rest of the model zoo. Returns the flash launches of
+    each full-width prefill."""
+    from repro_torch.models import moe
+    t0 = time.perf_counter()
+    _zoo_small(dev, _build, moe)
+    t_a = time.perf_counter() - t0
+    launches = {f"{MOE_ARCH} prefill": _zoo_moonshot(dev, _build, moe)}
+    t_b = time.perf_counter() - t0 - t_a
+    launches.update(_zoo_others(dev, _build))
+    total = time.perf_counter() - t0
+    print(f"phase 11: {total:.1f} s in all ((a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) "
+          f"{total - t_a - t_b:.1f} s)", flush=True)
+    return launches
+
+
 def _service_path(dev, g, h, pe_main, j_main, _build) -> None:
     """Phase 8: the mapping service on the card (see the module doc)."""
     import concurrent.futures
@@ -690,6 +1145,7 @@ def _service_path(dev, g, h, pe_main, j_main, _build) -> None:
     del r1, r2, r3
 
     # (c) coalescing at scale
+    h = parse_hierarchy(*STRATEGY_HIERARCHY)
     gc = [G.gen_rgg(SERVE_N_SCALE, seed=s, device=dev) for s in range(2)]
     cfg = SharedMapConfig()
     direct, t_seq = timed(lambda: [shared_map_direct(x, h, cfg, device=dev) for x in gc])
@@ -748,7 +1204,7 @@ def _service_path(dev, g, h, pe_main, j_main, _build) -> None:
     sh = svc.stats()["shadow"]
     if (sh["sampled"], sh["matched"], sh["device_quarantined"]) != (1, 1, False):
         raise AssertionError(f"service (e): shadow verification {sh}")
-    print(f"service (e) device strategy rgg {SERVE_N_SCALE} with shadow verification: "
+    print(f"service (e) device strategy rgg {SERVE_N_SCALE} on {h} with shadow verification: "
           f"request {t_dev:.2f} s, shadow {sh}, J {r.J}", flush=True)
     del gc, direct, out
 
@@ -929,8 +1385,8 @@ MAIN_PATH_J = 1_698_496    # J of the main path (rgg 2^20 on 4:8:6) under ell
 # phase 8 (a): benchmarks/run.py:bench_serve at its full size
 SERVE_R, SERVE_N, SERVE_H = 24, 64, ("2:2:2:2", "1:5:10:100")
 # (c)-(e): the requests coalesced, sent to workers, shadowed; cut from 2^16
-# (371 s for phase 8 there) and then from four requests at 2^15 to two at
-# 2^14 to fit the smoke's time limit
+# (371 s for phase 8 there), then from four requests at 2^15 to two at 2^14,
+# then from 4:8:6 to STRATEGY_HIERARCHY to fit the smoke's time limit
 SERVE_N_SCALE = 2**14
 
 
@@ -1231,7 +1687,9 @@ def main() -> int:
 
     host_split = [k for k in every if k != "gather_rows"]   # split on the host
 
-    def run_strategy(label, cfg, resident=None, expect=every, backend="ell", hh=h):
+    hs = parse_hierarchy(*STRATEGY_HIERARCHY)
+
+    def run_strategy(label, cfg, resident=None, expect=every, backend="ell", hh=hs):
         def go():
             MS.reset_transfer_stats()
             res = shared_map_direct(gsm, hh, cfg, resident=resident, device=dev)
@@ -1258,22 +1716,16 @@ def main() -> int:
     run_strategy("naive", SharedMapConfig(strategy="naive"), expect=host_split)
     if not np.array_equal(strat["bucket"].pe_of, strat["naive"].pe_of):
         raise AssertionError("bucket strategy differs from naive")
-    # queue against naive on QUEUE_HIERARCHY: its time follows its partition
-    # calls (5 there, 55 on 4:8:6), each behind its threads' interpreter-lock
-    # convoy; cut for the smoke's time limit
-    hq = parse_hierarchy(*QUEUE_HIERARCHY)
-    for name in ("naive", "queue"):
-        run_strategy(f"{name} on {hq}", SharedMapConfig(strategy=name), expect=host_split,
-                     hh=hq)
-    if not np.array_equal(strat[f"queue on {hq}"].pe_of, strat[f"naive on {hq}"].pe_of):
+    run_strategy("queue", SharedMapConfig(strategy="queue"), expect=host_split)
+    if not np.array_equal(strat["queue"].pe_of, strat["naive"].pe_of):
         raise AssertionError("queue strategy differs from naive")
     run_strategy("bucket, xla pinned, second run", SharedMapConfig(backend="xla"),
                  expect=[k for k in every if k != "lp_gain"], backend="xla")
     if not np.array_equal(strat["bucket, xla pinned"].pe_of,
                           strat["bucket, xla pinned, second run"].pe_of):
         raise AssertionError("two runs of one path gave different pe_of")
-    print(f"strategies: device equals its twin with one array fetch; naive equals "
-          f"bucket; two xla runs give one pe_of; queue equals naive on {hq}", flush=True)
+    print(f"strategies on {hs}: device equals its twin with one array fetch; naive equals "
+          f"bucket, queue equals naive, two xla runs give one pe_of", flush=True)
     del gsm, strat
 
     # the device strategy on four levels: its children at depth 3 reach powf
@@ -1288,9 +1740,13 @@ def main() -> int:
         return torch.pow(x, float(np.float32(1.0 / depth)))
     for name, gs in (("grid 32x32", G.gen_grid(32, device="cpu")),
                      ("rgg 2000", G.gen_rgg(2000, seed=3, device="cpu"))):
+        MS.reset_transfer_stats()
         a, _, ln = _run_path(f"device strategy {name} on {deep_h}",
                              lambda: shared_map_direct(gs, deep_h, deep_cfg, device=dev),
                              ["powf"], _build)
+        fetches = MS.transfer_stats()["d2h_array_fetches"]
+        if fetches != 1:
+            raise AssertionError(f"device strategy on {deep_h} fetched {fetches} arrays")
         b = shared_map_direct(gs, deep_h, deep_cfg, device="cpu")
         if not np.array_equal(a.pe_of, b.pe_of):
             raise AssertionError(f"device strategy, {name} on {deep_h}: the card's pe_of "
@@ -1300,8 +1756,8 @@ def main() -> int:
             old = shared_map_direct(gs, deep_h, deep_cfg, device=dev)
         finally:
             H._powf = pow_powf
-        print(f"device strategy {name} on {deep_h}: pe_of equal on card and CPU, "
-              f"{ln['powf']} powf launches, J {a.J} / {b.J}; with torch's pow (the "
+        print(f"device strategy {name} on {deep_h}: pe_of equal on card and CPU, one "
+              f"array fetch, {ln['powf']} powf launches, J {a.J} / {b.J}; with torch's pow (the "
               f"parent's card route) pe_of equal on {int((old.pe_of == b.pe_of).sum())} "
               f"of {len(b.pe_of)} vertices, J {old.J}", flush=True)
     rng = np.random.default_rng(0)
@@ -1480,11 +1936,16 @@ def main() -> int:
 
     # ---- 10. the serving path: llama3.2-3b at full width --------------------
     flash_launches = _serving_path(dev, check, _build)
+    torch.cuda.empty_cache()
 
-    # ---- 11. the kernels line and the contract's last line ------------------
+    # ---- 11. the rest of the model zoo ---------------------------------------
+    zoo_launches = _zoo_path(dev, _build)
+
+    # ---- 12. the kernels line and the contract's last line ------------------
     for r in rows:
         if r["name"] == "flash_attention":
             r["launches"] = flash_launches
+            r["launches_by_path"] = {f"{ARCH} prefill": flash_launches, **zoo_launches}
             continue
         r["launches"] = launches[r["name"]]
         r["main_path_ms"] = sum(d["ms"] for d in by_n[r["name"]].values())

@@ -1,1 +1,1 @@
-"""The dense model family of the port, with its flash-attention path."""
+"""The model zoo of the port: every family of the JAX package on one device."""

@@ -1,4 +1,4 @@
-"""GQA attention: prefill (full and sliding-window) and decode paths.
+"""GQA attention: prefill (full, sliding-window, cross) and decode paths.
 
 The port of ``repro/models/attention.py`` for one device. Activations keep
 the reference's ``[B, S, H, Dh]`` layout. With ``ctx.use_flash`` the
@@ -131,3 +131,17 @@ def decode_attention(cfg: ModelConfig, p, x, cache_k, cache_v, pos: int):
     out = _sdpa(q, _expand_kv(cfg, cache_k), _expand_kv(cfg, cache_v), mask)
     out = out.reshape(B, 1, cfg.q_dim) @ p["wo"].to(x.dtype)
     return out, cache_k, cache_v
+
+
+def cross_attention(cfg: ModelConfig, p, x, memory_kv):
+    """Decoder cross-attention against precomputed encoder (k, v)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k, v = memory_kv
+    mask = torch.ones(1, S, k.shape[1], dtype=torch.bool, device=x.device)
+    out = _sdpa(q, _expand_kv(cfg, k), _expand_kv(cfg, v), mask)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"].to(x.dtype)
+
+
+def decode_cross_attention(cfg: ModelConfig, p, x, memory_kv):
+    return cross_attention(cfg, p, x, memory_kv)

@@ -135,3 +135,56 @@ def embed_tokens(p, tokens):
 def unembed(cfg: ModelConfig, p, x):
     w = p["tok"].T if cfg.tie_embeddings else p["out"]
     return x @ w.to(x.dtype)
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean cross-entropy in f32. logits [..., V], labels [...] int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` everywhere (``F.softplus``
+    turns linear above its threshold)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
+def associative_scan(fn, elems, dim: int):
+    """Inclusive scan of the tuple of tensors ``elems`` along ``dim`` under
+    the associative ``fn``, by ``jax.lax.associative_scan``'s algorithm
+    (combine adjacent pairs, scan the half recursively, fill in the even
+    positions), so the combines happen in the reference's order."""
+    def sl(x, start, stop=None, step=1):
+        return x[(slice(None),) * dim + (slice(start, stop, step),)]
+
+    def interleave(a, b):   # a holds the even positions, b the odd ones
+        n = a.shape[dim] + b.shape[dim]
+        if a.shape[dim] > b.shape[dim]:
+            b = torch.cat([b, torch.zeros_like(sl(a, 0, 1))], dim=dim)
+        out = torch.stack([a, b], dim=dim + 1).flatten(dim, dim + 1)
+        return sl(out, 0, n)
+
+    def scan(xs):
+        n = xs[0].shape[dim]
+        if n < 2:
+            return xs
+        reduced = fn([sl(x, 0, -1, 2) for x in xs], [sl(x, 1, None, 2) for x in xs])
+        odd = scan(reduced)
+        if n % 2 == 0:
+            even = fn([sl(x, 0, -1) for x in odd], [sl(x, 2, None, 2) for x in xs])
+        else:
+            even = fn(odd, [sl(x, 2, None, 2) for x in xs])
+        even = [torch.cat([sl(x, 0, 1), e], dim=dim) for x, e in zip(xs, even)]
+        return [interleave(e, o) for e, o in zip(even, odd)]
+
+    return tuple(scan(list(elems)))

@@ -44,8 +44,9 @@ class Engine:
         self.ctx = ctx
         self.device = params.device
         # The weight matrices in the compute dtype, cast once: the same
-        # values the reference casts inside every jitted decode step. Norm
-        # weights stay f32, as the functions use them.
+        # values the reference casts inside every jitted decode step (every
+        # family uses each matrix only after a cast to it). Vectors (norms,
+        # biases, gates) stay f32, as the functions use them.
         self._cparams = cast_matrices(params, CDTYPE)
 
     def generate(self, prompts: np.ndarray, steps: int, temperature: float = 0.0,

@@ -663,3 +663,66 @@ def test_initial_partition_seeds_card_equals_cpu(cuda, n):
         got = initial_partition(g.to(cuda), 16, torch.tensor(100.0, device=cuda), salt=salt,
                                 backend="xla")
         assert torch.equal(got.cpu(), want)
+
+
+# ---- the model zoo on the card ---------------------------------------------------
+
+ZOO = ("moonshot-v1-16b-a3b", "mixtral-8x22b", "jamba-v0.1-52b", "xlstm-125m",
+       "whisper-tiny", "internvl2-76b")
+
+
+def _zoo_batch(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    b = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab_size, (B, S)))}
+    if cfg.frontend == "vision_stub":
+        b["patch_embeds"] = torch.as_tensor(
+            rng.standard_normal((B, cfg.num_patches, cfg.d_model)) * 0.02).to(torch.bfloat16)
+    if cfg.is_encoder_decoder:
+        b["frames"] = torch.as_tensor(
+            rng.standard_normal((B, S, cfg.d_model)) * 0.02).to(torch.bfloat16)
+    return b
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_smoke_prefill_card_equals_cpu(cuda, arch):
+    """Each family's smoke prefill (flash where the family takes it) on the
+    card against the CPU's plain route, at the whole path's bf16 tolerance
+    (atol 0.15, rtol 0.1; chip_smoke.py's LOGITS_ATOL/RTOL)."""
+    import copy
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as MM
+    from repro_torch.models.sharding import ShardCtx
+    cfg = get_smoke_config(arch)
+    p = MM.init_fn(cfg, torch.Generator(device="cpu").manual_seed(0))
+    b = _zoo_batch(cfg, 2, 64, seed=1)
+    ctx = ShardCtx(use_flash=True)
+    want = MM.prefill_fn(cfg, p, b, ctx)
+    before = _build.LAUNCHES["flash_attention"]
+    got = MM.prefill_fn(cfg, copy.deepcopy(p).to(cuda), {k: v.to(cuda) for k, v in b.items()},
+                        ctx)
+    flash = _build.LAUNCHES["flash_attention"] - before
+    assert flash == (0 if arch in ("xlstm-125m", "whisper-tiny") else
+                     sum(k.startswith("attn") for k in cfg.layer_kinds())
+                     * (cfg.num_layers // len(cfg.layer_kinds())))
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.device.type == "cuda" and g.dtype == w.dtype == torch.bfloat16
+        torch.testing.assert_close(g.cpu().float(), w.float(), atol=0.15, rtol=0.1)
+
+
+def test_moe_combine_on_the_card(cuda):
+    """The expert-by-expert combine: one result over two card runs, equal
+    output rows for duplicate token rows, and the CPU's within bf16
+    rounding."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import moe
+    cfg = get_smoke_config("moonshot-v1-16b-a3b")
+    p = moe.moe_params(cfg, torch.Generator(device="cpu").manual_seed(3))
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn(40, cfg.d_model, generator=gen).repeat(3, 1).to(torch.bfloat16)  # 3 copies
+    args = [p["router"]] + [p[k][0].to(torch.bfloat16) for k in ("w_gate", "w_up", "w_down")]
+    runs = [moe.moe_ffn_shard(cfg, x.to(cuda), *(a.to(cuda) for a in args)) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0][:40], runs[0][40:80]) and torch.equal(runs[0][:40], runs[0][80:])
+    want = moe.moe_ffn_shard(cfg, x, *args)
+    torch.testing.assert_close(runs[0].cpu().float(), want.float(), atol=0.05, rtol=0.05)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_families as tf
 from repro.configs import registry as jreg
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -25,7 +26,6 @@ from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import model as JM
 from repro.models.sharding import ShardCtx as JShardCtx
-from repro.serve.engine import Engine as JEngine
 from repro_torch.configs import registry as reg
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as A
@@ -343,36 +343,11 @@ def test_decode_fn_steps_bf16(smoke):
         np.testing.assert_allclose(_np(cache[name]), _np(jcache[name]), atol=0.05, rtol=0.05)
 
 
-def test_engine_generate_greedy_matches_reference(smoke):
-    """Greedy tokens equal the reference's up to the first step at which the
-    reference's own top-1/top-2 logit margin is below the logits tolerance
-    (there a few bf16 ulps may pick the other token)."""
-    cfg_j, cfg, pj, pt = smoke
-    B, P, steps = 3, 10, 8
-    prompts = _tokens(cfg, B, P, seed=2)
-    got, stats = Engine(cfg, pt, max_len=32).generate(prompts, steps)
-    want, _ = JEngine(cfg_j, pj, max_len=32).generate(prompts, steps)
-    assert got.shape == want.shape == (B, steps) and got.dtype == np.int32
-    assert stats.tokens == B * steps and stats.decode_s > 0
-    # the reference's margins along its own tokens
-    seq = np.concatenate([prompts, want], axis=1)
-    jcache = JM.init_cache(cfg_j, B, 32)
-    margins = []
-    for i in range(P + steps - 1):
-        jl, jcache = JM.decode_fn(cfg_j, pj, jnp.asarray(seq[:, i:i + 1]), jcache,
-                                  jnp.int32(i))
-        if i >= P - 1:
-            top = np.sort(_np(jl)[:, 0], axis=-1)
-            margins.append(top[:, -1] - top[:, -2])
-    margins = np.stack(margins, axis=1)          # [B, steps]
-    compared = 0
-    for b in range(B):
-        for i in range(steps):
-            if margins[b, i] < LOGITS_ATOL:
-                break
-            assert got[b, i] == want[b, i], (b, i, margins[b])
-            compared += 1
-    assert compared >= B   # at least the first step of every row
+def test_engine_generate_greedy_matches_reference():
+    """Greedy tokens equal the reference's; a row may part from them only at
+    a near-tie of the reference's own logits (``torch_families.check_engine``,
+    whose margins follow the tokens both engines actually feed)."""
+    tf.check_engine(tf.Family(ARCH))
 
 
 def test_engine_temperature_sampling(smoke):
@@ -386,17 +361,7 @@ def test_engine_temperature_sampling(smoke):
     np.testing.assert_array_equal(a, b)   # one seed, one draw
 
 
-# ---- what is not ported raises ----------------------------------------------------
-
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-tiny", "xlstm-125m",
-                                  "jamba-v0.1-52b", "internvl2-76b"])
-def test_other_families_raise(arch):
-    cfg = reg.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="item 7, 'The rest of models/'"):
-        M.init_fn(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 7, 'The rest of models/'"):
-        M.init_cache(cfg, 1, 8, device="cpu")
-
+# ---- entry points ------------------------------------------------------------------
 
 def test_one_device_ctx_and_entry_points():
     with pytest.raises(NotImplementedError, match="item 10, 'launch/'"):
