@@ -25,8 +25,10 @@ from repro.models import mamba as JMB
 from repro.models import xlstm as JXL
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
+from repro_torch.models import model as M
 from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import ShardCtx
 
 T = torch.from_numpy
 F32_ATOL, F32_RTOL = 2e-5, 1e-5
@@ -264,6 +266,15 @@ def fam():
                          ids=["flash", "dense", "flash_cast_once_chunk4"])
 def test_prefill_fn_bf16(fam, knobs):
     tf.check_prefill(fam, knobs)
+
+
+def test_prefill_fn_ignores_slstm_chunk(fam):
+    """The port steps the sLSTM one position at a time whatever
+    ``slstm_chunk`` (the reference's steps per scan iteration): 1 and 8 give
+    one result, bit for bit."""
+    b = tf.torch_batch(tf.batch(fam.cfg, 2, 32, seed=0))
+    one, eight = (M.prefill_fn(fam.cfg, fam.pt, b, ShardCtx(slstm_chunk=c)) for c in (1, 8))
+    assert torch.equal(one, eight)
 
 
 def test_decode_fn_steps_bf16(fam):
