@@ -106,7 +106,13 @@
    fine graphs (``partition._coarsen_levels``); the ``gen_grid(1000)``
    10^6 tier (seconds, shrink per level); ``coarsen_telemetry`` through
    ``shared_map`` on grid 32x32: the card's ``stats["coarsen"]`` equals the
-   CPU's.
+   CPU's. (d) The port's own train cells: ``launch.comm_graph.
+   compile_model_cell`` (``torch.export`` of the loss on the host) of
+   whisper-tiny at seq 64 x batch 4 (the HLO fixture's cell: the FLOP totals
+   agree within 0.5%) and xlstm-125m at seq 16 x batch 4 (cut from 64 for the
+   export's host time), extracted at ``min_tasks`` 512 and mapped on 16:16,
+   ``fast``, under ``ell`` and ``xla`` pinned: the card's ``pe_of`` equals
+   the CPU's, and xlstm-125m's J is below the default placement's.
 10. The serving path: the llama3.2 smoke config's prefill on the card
     against the CPU, then llama3.2-3b at full width (28 layers, d_model
     3072, random weights from a seeded ``torch.Generator``). ``prefill_fn`` on
@@ -142,7 +148,20 @@
     window 4096) and jamba-v0.1-52b at one super-block (prefill 1 x 4096)
     at full width. The flash kernel is held against its plain version on
     layer 0's q/k/v of the moonshot, mixtral and jamba prefills.
-12. Prints one JSON line with every kernel's numbers (flash's launches and
+12. Training. (a) The six family smoke configs, card against CPU from one
+    seeded init: ``loss_fn`` and every gradient in f32 (the compute dtype
+    set to float32 for the check), the loss in bf16. (b) On the llama3.2
+    smoke config, six AdamW steps straight equal three, a checkpoint, a
+    restore into another init and three more, bit for bit. (c) ``python -m
+    repro_torch.launch.train --smoke --steps 40 --fail-at 15
+    --checkpoint-every 5``: one restart, a final loss below the first.
+    (d) llama3.2-3b at full width (28 layers), B 1 x S 2048, three AdamW
+    steps under remat ``full`` and ``dots``, and ``none`` at 14 layers
+    beside ``full`` at 14 (every activation of 28 layers would not fit
+    beside the 58 GB of params, grads and moments): s/step, tok/s, peak
+    memory; step 1's loss equals ``loss_fn`` under ``no_grad``; one more
+    ``full`` step profiled (device busy share, top ops).
+13. Prints one JSON line with every kernel's numbers (flash's launches and
     max abs error by path), then the contract's last line. Any failed check raises, and the
     script exits non-zero.
 
@@ -151,10 +170,12 @@ exits with code 2 and prints no result. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1499,6 +1520,116 @@ def _ingestion_path(dev, g, deg_root, _build) -> None:
           f"CPU: {a}", flush=True)
 
 
+# phase 9 (d): the port's own train cells, exported and mapped. xlstm-125m cut
+# from seq 64 (26.4 s of export on a sandbox host) to 16 for the smoke's time.
+# The exports run in a process of their own from the smoke's start (host
+# Python on meta tensors, no card), so the card's phases hide their 40-60 s.
+EXPORT_CELLS = (("whisper-tiny", 64, 4), ("xlstm-125m", 16, 4))
+HLO_J_RATIO = {"whisper-tiny": 0.3344, "xlstm-125m": 0.0654}   # phase 9 (a), PR 19
+EXPORT_FLOP_RTOL = 0.005
+EXPORT_MIN_TASKS = 512    # 2k on physical_hierarchy(False)
+
+
+def _export_worker(out_dir: str) -> int:
+    """``chip_smoke.py --export-cells DIR``: export and extract each of
+    EXPORT_CELLS on the host (``compile_model_cell``, ``extract_fx_graph``
+    at EXPORT_MIN_TASKS) and write its task graph and timings to DIR."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    from repro_torch.launch import comm_graph as CG
+    from repro_torch.launch import fx_analysis as FX
+    for arch, S, B in EXPORT_CELLS:
+        t0 = time.perf_counter()
+        exported, _ = CG.compile_model_cell(arch, seq_len=S, batch=B)
+        t_exp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tg = CG.extract_fx_graph(exported, min_tasks=EXPORT_MIN_TASKS,
+                                 meta={"arch": arch, "seq_len": S, "batch": B})
+        t_ext = time.perf_counter() - t0
+        np.savez(Path(out_dir) / f"{arch}.npz", u=tg.u, v=tg.v, w=tg.w, vwgt=tg.vwgt)
+        (Path(out_dir) / f"{arch}.json").write_text(json.dumps({
+            "n": tg.n, "meta": tg.meta, "fingerprint": tg.fingerprint().hex(),
+            "export_s": t_exp, "extract_s": t_ext,
+            "flops": FX.total_flops(exported.graph)}))
+    return 0
+
+
+def _start_exports(out_dir: str):
+    """Start the export worker (no card: CUDA hidden from it)."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--export-cells",
+                             out_dir], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _export_path(dev, _build, worker, out_dir: str) -> None:
+    """Phase 9 (d): the port's own graphs (from the export worker), mapped on
+    16:16, fast, under ``ell`` (the five mapping kernels launch) and ``xla``
+    pinned: the card's ``pe_of`` equals the CPU's; xlstm-125m's J is below
+    the default placement's; whisper-tiny's FLOPs equal its HLO fixture's."""
+    import gzip
+
+    import numpy as np
+    from repro_torch.core.api import SharedMapConfig, shared_map_direct
+    from repro_torch.core.mapping import evaluate_J
+    from repro_torch.core.taskgraph import TaskGraph
+    from repro_torch.launch import comm_graph as CG
+    from repro_torch.launch import mesh as MESH
+
+    t0 = time.perf_counter()
+    log, _ = worker.communicate(timeout=600)
+    if worker.returncode != 0:
+        raise AssertionError(f"export worker exited {worker.returncode}: {log[-3000:]}")
+    print(f"export worker: waited {time.perf_counter() - t0:.2f} s for it here", flush=True)
+    h = MESH.physical_hierarchy(False)
+    assert 2 * h.k == EXPORT_MIN_TASKS
+    no_lp = [k for k in MAPPING_KERNELS if k != "lp_gain"]
+    for arch, S, B in EXPORT_CELLS:
+        info = json.loads((Path(out_dir) / f"{arch}.json").read_text())
+        with np.load(Path(out_dir) / f"{arch}.npz") as a:
+            tg = TaskGraph.from_edges(info["n"], a["u"], a["v"], a["w"], vwgt=a["vwgt"],
+                                      meta=info["meta"])
+        if tg.fingerprint().hex() != info["fingerprint"]:
+            raise AssertionError(f"export {arch}: the graph changed on its way from the worker")
+        note = ""
+        if arch == "whisper-tiny":   # the HLO fixture is this cell (seq 64, batch 4)
+            with gzip.open(HLO_DIR / "whisper_tiny_train.hlo.txt.gz") as f:
+                text = f.read().decode()
+            side = json.loads((HLO_DIR / "whisper_tiny_train.json").read_text())
+            ref = CG.extract_comm_graph(text, side["trip_hints"], min_tasks=side["min_tasks"])
+            want = float(ref.vwgt.astype(np.float64).sum())
+            got = float(tg.vwgt.astype(np.float64).sum())
+            if abs(got - want) > EXPORT_FLOP_RTOL * want:
+                raise AssertionError(f"{arch}: export FLOPs {got!r}, the HLO fixture's {want!r}")
+            note = f"; sum of vwgt {got:.6g} against the HLO fixture's {want:.6g}"
+        gt = tg.to_graph(device=dev)
+        j_def = evaluate_J(gt, h, CG.default_placement(tg.n, h.k), device=dev)
+        line = []
+        for backend, expect in (("ell", MAPPING_KERNELS), ("xla", no_lp)):
+            cfg = SharedMapConfig(preset="fast", backend=backend)
+            r, sec, ln = _run_path(f"export {arch} {backend}",
+                                   lambda: shared_map_direct(tg, h, cfg, device=dev),
+                                   expect, _build)
+            rc = shared_map_direct(tg, h, cfg, device="cpu")
+            if r.pe_of.dtype != rc.pe_of.dtype or not np.array_equal(r.pe_of, rc.pe_of):
+                raise AssertionError(f"export {arch} {backend}: the card's pe_of differs from "
+                                     f"the CPU's (J {r.J!r} / {rc.J!r})")
+            # whisper-tiny's unembed task holds 54% of the FLOPs, more than a
+            # top-level block may: the balance constraint places its neighbours
+            # apart, and J lies above program order's (on the CPU and in the
+            # reference alike, tests/test_torch_model_graphs.py)
+            if arch != "whisper-tiny" and not r.J < j_def:
+                raise AssertionError(f"export {arch} {backend}: J {r.J} not below the default "
+                                     f"placement's {j_def}")
+            line.append(f"{backend}: mapping {sec:.2f} s, J {r.J!r}, J/J_default "
+                        f"{r.J / j_def:.4f}, pe_of equal to the CPU's, launches {ln}")
+        print(f"export {arch} seq {S} batch {B}: torch.export {info['export_s']:.2f} s on the "
+              f"host (in the worker), extraction {info['extract_s']:.3f} s, {tg.n} tasks, "
+              f"{tg.m} edges ({tg.meta['granularity']}), dot FLOPs {info['flops']:.6g}{note}; "
+              f"on {h} k={h.k}, fast; J_default {j_def!r} (the HLO fixture's J/J_default "
+              f"{HLO_J_RATIO[arch]}); " + "; ".join(line), flush=True)
+
 QUALITY = ("shared_map(tg)", "refine_mapping", "global_multisection", "kaffpa_map_style",
            "random_mapping", "greedy_baseline")
 KAFFPA_HIERARCHY = ("4:8:4", "1:10:100")   # k = 128: the nearest paper hierarchy with k = 2^j
@@ -1620,6 +1751,246 @@ def _quality_main(dev, g, tg, gt, h, res_sm, t_sm, every, _build) -> None:
               + (f", launches {ln}" if ln else ""), flush=True)
 
 
+# ---- phase 12: training ---------------------------------------------------------
+TRAIN_ARCHS = ("llama3.2-3b", "moonshot-v1-16b-a3b", "jamba-v0.1-52b", "xlstm-125m",
+               "whisper-tiny", "internvl2-76b")
+TRAIN_LOSS_RTOL_F32 = 1e-5    # tests/test_torch_train.py: f32, card against CPU
+TRAIN_LEAF_RTOL_F32 = 1e-4    # relative L2 per leaf
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 1, 2048, 3    # (d): llama3.2-3b at full width
+# remat "none" keeps every layer's activations (~1.5 GB a layer at 1 x 2048,
+# reckoned): 28 layers would pass 75 GB beside the 43 GB of params, mu and nu,
+# so that run, and a "full" one beside it, cut the depth to 14 layers
+TRAIN_CUT_LAYERS = 14
+
+
+def _f32_compute(on: bool):
+    """Set the port's compute dtype to float32 (``on``) or back to bf16 in
+    every module that reads it (as the CPU tests do)."""
+    import importlib
+    import torch
+    for m in ("layers", "model", "transformer", "whisper"):
+        setattr(importlib.import_module(f"repro_torch.models.{m}"), "CDTYPE",
+                torch.float32 if on else torch.bfloat16)
+
+
+def _train_small(dev) -> None:
+    """Phase 12 (a): each family's smoke config, card against CPU from one
+    seeded init: loss and every gradient in f32, the loss in bf16."""
+    import copy
+
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as MM
+    from repro_torch.train.train_step import loss_and_grads, train_state
+
+    for arch in TRAIN_ARCHS:
+        cfg = get_smoke_config(arch)
+        S = cfg.num_patches + 16 if cfg.frontend == "vision_stub" else 16
+        b_cpu = make_batch(cfg, DataConfig(S, 2, seed=1), 0, "cpu")
+        b_dev = {k: v.to(dev) for k, v in b_cpu.items()}
+        p_cpu = train_state(MM.init_fn(cfg, torch.Generator(device="cpu").manual_seed(0))).params
+        p_dev = copy.deepcopy(p_cpu).to(dev)
+        _f32_compute(True)
+        try:
+            l_cpu, g_cpu = loss_and_grads(cfg, p_cpu, b_cpu)
+            l_dev, g_dev = loss_and_grads(cfg, p_dev, b_dev)
+        finally:
+            _f32_compute(False)
+        if abs(float(l_dev) - float(l_cpu)) > TRAIN_LOSS_RTOL_F32 * abs(float(l_cpu)):
+            raise AssertionError(f"{arch} smoke f32 loss: card {float(l_dev)!r}, CPU "
+                                 f"{float(l_cpu)!r}")
+        errs = []
+        for k, g in g_cpu.items():
+            a, b = g_dev[k].double().cpu(), g.double()
+            errs.append((float((a - b).norm() / b.norm().clamp_min(1e-30)), k))
+        worst = max(errs)
+        if not worst[0] < TRAIN_LEAF_RTOL_F32:
+            raise AssertionError(f"{arch} smoke f32 gradients: {worst[1]} {worst[0]:.3g} apart "
+                                 f"(relative L2; limit {TRAIN_LEAF_RTOL_F32})")
+        lb_cpu, _ = loss_and_grads(cfg, p_cpu, b_cpu)
+        lb_dev, gb_dev = loss_and_grads(cfg, p_dev, b_dev)
+        _held(f"{arch} smoke bf16 loss", lb_dev, lb_cpu)
+        if not all(torch.isfinite(g).all() for g in gb_dev.values()):
+            raise AssertionError(f"{arch} smoke bf16 gradients: not finite")
+        print(f"{arch} smoke train cell, card against CPU: f32 loss {float(l_dev):.7f} / "
+              f"{float(l_cpu):.7f}, {len(errs)} gradient leaves, worst relative L2 "
+              f"{worst[0]:.3g} ({worst[1]}; limits rtol {TRAIN_LOSS_RTOL_F32}, "
+              f"{TRAIN_LEAF_RTOL_F32}); bf16 loss {float(lb_dev):.5f} / {float(lb_cpu):.5f} "
+              f"(atol {LOGITS_ATOL} rtol {LOGITS_RTOL})", flush=True)
+
+
+def _train_restart(dev) -> None:
+    """Phase 12 (b): six steps straight equal three, a checkpoint, a restore
+    into another init and three more, bit for bit on the card."""
+    import torch
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = get_smoke_config(ARCH)
+    dc = DataConfig(seq_len=16, global_batch=4, seed=1)
+    step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3, total_steps=8, warmup_steps=1))
+
+    def run(steps, state):
+        for s in steps:
+            state, _ = step_fn(state, make_batch(cfg, dc, s, dev))
+        return state
+
+    def differing(a, b):
+        out = [k for (k, x), y in zip(a.params.named_parameters(), b.params.parameters())
+               if not torch.equal(x, y)]
+        return out + [f"mu/{k}" for k in a.opt.mu if not torch.equal(a.opt.mu[k], b.opt.mu[k])]
+
+    t0 = time.perf_counter()
+    straight = run(range(6), init_train_state(cfg, 0, dev))
+    again = run(range(6), init_train_state(cfg, 0, dev))
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d)
+        state = run(range(3), init_train_state(cfg, 0, dev))
+        ck.save(3, {"params": state.params, "opt": state.opt})
+        ck.wait()
+        tmpl = init_train_state(cfg, 5, dev)
+        back = ck.restore(3, {"params": tmpl.params, "opt": tmpl.opt})
+        resumed = run(range(3, 6), tmpl._replace(params=back["params"], opt=back["opt"]))
+    bad = {"a second straight run": differing(straight, again),
+           "the restart": differing(straight, resumed)}
+    if any(bad.values()):
+        raise AssertionError(f"restart on the card: leaves that differ from the straight run "
+                             f"{ {k: v[:6] for k, v in bad.items()} }")
+    print(f"{cfg.name} train restart on the card: 6 steps straight == 3 steps, checkpoint, "
+          f"restore into another init, 3 steps, bit for bit (params, mu, nu; a second "
+          f"straight run too), {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _train_driver(dev) -> None:
+    """Phase 12 (c): ``python -m repro_torch.launch.train`` on the card with an
+    injected failure: one restart, and a final loss below the first."""
+    import os
+    import re
+
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH, "--smoke",
+               "--steps", "40", "--fail-at", "15", "--checkpoint-every", "5",
+               "--checkpoint-dir", os.path.join(d, "run")]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(SRC)] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
+        sec = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"launch.train exited {out.returncode}: {out.stderr[-2000:]}")
+    log = out.stdout
+    losses = [float(x) for x in re.findall(r"^step\s+\d+ loss (\S+)", log, re.M)]
+    done = re.search(r"\[done\] final loss (\S+)", log)
+    if log.count("[restart #") != 1 or "[restore] resumed from step 10" not in log or not done:
+        raise AssertionError(f"launch.train: expected one restart from step 10:\n{log[-2000:]}")
+    final = float(done.group(1))
+    if not final < losses[0]:
+        raise AssertionError(f"launch.train: final loss {final} not below the first {losses[0]}")
+    speed = re.findall(r"^step\s+39 .* (\S+) ms/step\s+(\S+) tok/s", log, re.M)
+    print(f"launch.train {ARCH} --smoke --steps 40 --fail-at 15 --checkpoint-every 5 on the "
+          f"card: one restart (resumed from step 10), loss {losses[0]:.4f} at step 0, final "
+          f"{final:.4f}; last step {speed[0] if speed else '?'} (ms, tok/s); {sec:.1f} s "
+          f"with the process's start", flush=True)
+
+
+def _train_full(dev) -> None:
+    """Phase 12 (d): llama3.2-3b at full width, B 1 x S 2048, three AdamW steps
+    under remat full and dots (28 layers) and none (TRAIN_CUT_LAYERS, beside
+    full at the same depth); step 1's loss equals loss_fn under no_grad."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as MM
+    from repro_torch.models.sharding import ShardCtx
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step, train_state
+
+    full = get_config(ARCH)
+    print(f"{ARCH} training memory reckoned: {full.param_count()} params x 16 B (params, "
+          f"grads, mu, nu) = {full.param_count() * 16 / 1e9:.1f} GB before activations",
+          flush=True)
+    dc = DataConfig(TRAIN_S, TRAIN_B, seed=0)
+    for remat, layers in (("full", 0), ("dots", 0), ("none", TRAIN_CUT_LAYERS),
+                          ("full", TRAIN_CUT_LAYERS)):
+        cfg = dataclasses.replace(full, num_layers=layers) if layers else full
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = train_state(MM.init_fn(cfg, torch.Generator(device=dev).manual_seed(0)))
+        ctx = ShardCtx(remat=remat)
+        step = make_train_step(cfg, AdamWConfig(), ctx)
+        batches = [make_batch(cfg, dc, s, dev) for s in range(TRAIN_STEPS)]
+        if remat == "full" and not layers:
+            with torch.no_grad():
+                eval_loss = float(MM.loss_fn(cfg, state.params, batches[0]))
+        secs, losses = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(map(lambda x: x == x and abs(x) < 1e3, losses)):
+            raise AssertionError(f"{ARCH} full-width training: losses {losses}")
+        if remat == "full" and not layers and \
+                abs(losses[0] - eval_loss) > 1e-6 * abs(eval_loss):
+            raise AssertionError(f"{ARCH} full width: step 1's loss {losses[0]!r}, loss_fn "
+                                 f"under no_grad {eval_loss!r}")
+        s_step = statistics.median(secs[1:])
+        if remat == "full" and not layers:   # one more step, profiled
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=acts) as prof:
+                step(state, batches[0])
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_us = sum(e.self_device_time_total for e in events)
+            print(f"profile: {ARCH} train step, remat full: wall {wall:.3f} s under the "
+                  f"profiler, device busy {busy_us / 1e6:.3f} s "
+                  f"({100 * busy_us / 1e6 / wall:.1f}%), {sum(e.count for e in events)} "
+                  f"device ops", flush=True)
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+                print(f"profile:   {e.self_device_time_total / 1e3:10.2f} ms  {e.count:7d}x  "
+                      f"{e.key[:90]}", flush=True)
+            del prof, events
+        print(f"{ARCH} train step at full width ({cfg.num_layers} layers"
+              + (f", cut from {full.num_layers}" if layers else "") + f"), B {TRAIN_B} x S "
+              f"{TRAIN_S}, remat {remat}: steps {[round(s, 3) for s in secs]} s, "
+              f"{s_step:.3f} s/step (median of steps 2-{TRAIN_STEPS}), "
+              f"{TRAIN_B * TRAIN_S / s_step:.0f} tok/s, peak memory {peak} B, losses "
+              f"{[round(x, 5) for x in losses]}"
+              + (f"; step 1's loss equals loss_fn under no_grad ({eval_loss!r}) within rtol "
+                 f"1e-6" if remat == "full" and not layers else ""), flush=True)
+        del state, step, batches
+    torch.cuda.empty_cache()
+
+
+def _train_path(dev) -> None:
+    """Phase 12: training (see the module doc)."""
+    t0 = time.perf_counter()
+    _train_small(dev)
+    t_a = time.perf_counter() - t0
+    _train_restart(dev)
+    t_b = time.perf_counter() - t0 - t_a
+    _train_driver(dev)
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    _train_full(dev)
+    total = time.perf_counter() - t0
+    print(f"phase 12: {total:.1f} s in all ((a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {t_c:.1f} s, "
+          f"(d) {total - t_a - t_b - t_c:.1f} s)", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1659,6 +2030,9 @@ def main() -> int:
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.BUILD_SECONDS:.1f} s)", flush=True)
+    export_dir = tempfile.TemporaryDirectory()   # phase 9 (d)'s graphs, made meanwhile
+    exports = _start_exports(export_dir.name)
+    atexit.register(exports.kill)   # nothing once it has ended
     for source in ("flash_attention.cu", "lp_gain.cu", "contract_edges.cu", "hem_propose.cu",
                    "mapcost.cu", "powf.cu"):
         for line in _build.ptxas_report(source):
@@ -2064,6 +2438,9 @@ def main() -> int:
     _ingestion_path(dev, g, deg_root, _build)
     del g
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _export_path(dev, _build, exports, export_dir.name)
+    print(f"phase 9 (d): {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 10. the serving path: llama3.2-3b at full width --------------------
     print(f"phase 10 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2074,8 +2451,13 @@ def main() -> int:
     print(f"phase 11 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     zoo_launches, zoo_errs = _zoo_path(dev, _build)
 
-    # ---- 12. the kernels line and the contract's last line ------------------
+    # ---- 12. training ---------------------------------------------------------
     print(f"phase 12 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    _train_path(dev)
+
+    # ---- 13. the kernels line and the contract's last line ------------------
+    print(f"phase 13 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     for r in rows:
         if r["name"] == "flash_attention":
             r["launches"] = flash_launches
@@ -2096,4 +2478,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--export-cells"]:
+        sys.exit(_export_worker(sys.argv[2]))
     sys.exit(main())

@@ -22,11 +22,11 @@ Backends, as in the reference, selected per call with ``backend=``:
   kernels are live exactly on the card.
 
 Sums of float weights by label go through ``graph.label_sums`` and
-``graph.row_label_sums``, whose order is fixed on the card too (no
-atomics). They are exact, and equal to the reference's, while all weights
-are integers below 2^24; with other float weights the card's block sums
-may round apart from the CPU's (ROADMAP.md, Queue 3), but two runs on one
-device agree.
+``graph.row_label_sums``, which add in entry order on both devices (on the
+card ``graph.segment_sum``, no atomics), so the card's block sums equal
+the CPU's bit for bit, for any float weights; while all weights are
+integers below 2^24 they are exact in any order, and the card takes a
+faster masked reduction inside ``graph.exact_sums``.
 """
 from __future__ import annotations
 

@@ -34,10 +34,32 @@ Graph construction (``extract_comm_graph``):
 
 The text comes from wherever JAX compiled the program (a ``Compiled``
 object's ``as_text()``); extraction is host Python and needs neither JAX nor
-a device. The reference's ``compile_model_cell`` and ``model_comm_graph``,
-which compile a cell of the model zoo, wait for the port's own model front
-end (ROADMAP.md, Queue 1, item 8); ``tests/data/hlo/make_hlo_fixtures.py``
-writes two such texts with the JAX package.
+a device. ``tests/data/hlo/make_hlo_fixtures.py`` writes two such texts
+with the JAX package.
+
+The port's own models (``compile_model_cell``, ``model_comm_graph``) take
+another front end: ``torch.export`` of the port's training loss on
+``input_specs``' meta tensors, with the params built on the meta device, so
+nothing is materialized (``export_train_cell``); ``extract_fx_graph`` turns
+the exported graph into a ``TaskGraph`` by the rules above, with the node
+kinds, FLOPs and bytes of ``launch/fx_analysis.py``:
+
+* **Tasks** — one per call node that is neither a source (placeholder,
+  constant, factory) nor transparent (views, ``getitem``, checks); edges
+  carry the consumed tensor's bytes from each resolved producer, vertex
+  weights the node's FLOPs floored at 1.
+* **``fused``** — eager PyTorch has no compiler fusion, so ``fused`` is a
+  stated, deterministic coarsening after XLA's loop fusion: walking the
+  graph from its end, a pointwise task (``fx_analysis.is_pointwise``) whose
+  value reaches exactly one task merges into that task's group; a group
+  sums its members' FLOPs, and edges inside a group vanish. A group's id
+  is the graph position of its last node. ``op`` keeps one task per node.
+* **Loops are unrolled** in the exported graph (the layer loop, the sLSTM
+  time loop), so every op appears as often as it runs and the trip hints
+  scale nothing; they ride in ``meta`` only.
+* The graph is not the reference's HLO graph bit for bit (another IR, no
+  compiler passes); its FLOP total is the same (whisper-tiny: equal to 4
+  digits, ``tests/test_torch_model_graphs.py``).
 """
 from __future__ import annotations
 
@@ -274,3 +296,154 @@ def default_placement(n: int, k: int) -> np.ndarray:
     communication pattern does. The closed-loop comparisons measure
     ``shared_map`` against this."""
     return (np.arange(int(n), dtype=np.int64) * int(k)) // max(int(n), 1)
+
+
+# ---------------------------------------------------------------------------
+# the port's own models: torch.export front end
+# ---------------------------------------------------------------------------
+
+def export_train_cell(cfg, seq_len: int = 64, batch: int = 4):
+    """``torch.export`` of the port's training loss of ``cfg`` on
+    ``input_specs``' meta tensors, with every param on the meta device.
+
+    The loss is traced as ``models.model.loss_fn`` with grad mode off, so
+    no remat wrapper and no grad-mode switch hides the graph inside one
+    higher-order node."""
+    import torch
+
+    from ..models import model as M
+    from ..models.transformer import DecoderLM
+    from ..models.whisper import EncDecLM
+
+    class _LossCell(torch.nn.Module):
+        def __init__(self, params):
+            super().__init__()
+            self.params = params
+
+        def forward(self, b):
+            return M.loss_fn(cfg, self.params, b)
+
+    specs = M.input_specs(cfg, seq_len, batch, "train")
+    params = (EncDecLM if cfg.is_encoder_decoder else DecoderLM)(cfg, device="meta")
+    with torch.no_grad():
+        return torch.export.export(_LossCell(params), (specs,), strict=False)
+
+
+def compile_model_cell(arch: str, *, seq_len: int = 64, batch: int = 4,
+                       mode: str = "train"):
+    """Export one small single-device train cell of a ``configs/`` arch and
+    return ``(exported, trip_hints)`` (a ``torch.export.ExportedProgram``;
+    see ``export_train_cell``). Nothing is materialized; it runs on the
+    host. Only ``mode="train"`` (the loss) is supported, as in the
+    reference."""
+    if mode != "train":
+        raise ValueError("compile_model_cell supports mode='train' only; "
+                         "prefill/decode cells are ROADMAP.md, Queue 1, item 10")
+    from ..configs.registry import get_config
+    from ..models import model as M
+
+    cfg = get_config(arch)
+    return export_train_cell(cfg, seq_len, batch), M.scan_trip_hints(cfg, seq_len, mode)
+
+
+def model_comm_graph(arch: str, *, seq_len: int = 64, batch: int = 4,
+                     granularity: str = "fused",
+                     min_tasks: int | None = None) -> TaskGraph:
+    """Export a tiny train cell of ``arch`` and extract its communication
+    task graph (the reference's two-step quickstart in one call)."""
+    exported, hints = compile_model_cell(arch, seq_len=seq_len, batch=batch)
+    return extract_fx_graph(
+        exported, granularity=granularity, min_tasks=min_tasks,
+        meta={"arch": arch, "seq_len": seq_len, "batch": batch,
+              "mode": "train", "trip_hints": hints})
+
+
+def extract_fx_graph(exported, *, granularity: str = "fused",
+                     min_tasks: int | None = None,
+                     meta: dict | None = None) -> TaskGraph:
+    """The communication graph of an ``ExportedProgram`` (or a
+    ``torch.fx.Graph``); ``granularity`` and ``min_tasks`` as in
+    ``extract_comm_graph`` (``fused`` is the loop-fusion coarsening of
+    the module docstring)."""
+    if granularity not in ("fused", "op"):
+        raise ValueError(f"granularity must be 'fused' or 'op', "
+                         f"got {granularity!r}")
+    graph = getattr(exported, "graph", exported)
+    tg = _build_fx(graph, granularity)
+    if (granularity == "fused" and min_tasks is not None
+            and tg.n < int(min_tasks)):
+        granularity = "op"
+        tg = _build_fx(graph, granularity)
+    tg.meta.update(meta or {})
+    tg.meta.update({"source": "export", "granularity": granularity})
+    return tg
+
+
+def _build_fx(graph, granularity: str) -> TaskGraph:
+    from . import fx_analysis as FX
+
+    nodes = list(graph.nodes)
+    tasks = [nd for nd in nodes if FX.is_task(nd)]
+    is_task = set(tasks)
+    producers: dict = {}
+
+    def resolve(nd) -> list:
+        """Tasks producing ``nd``'s value, through transparent nodes."""
+        if nd in is_task:
+            return [nd]
+        hit = producers.get(nd)
+        if hit is None:
+            hit = []
+            if FX.is_transparent(nd):
+                for i in FX.input_nodes(nd):
+                    hit.extend(resolve(i))
+            producers[nd] = hit
+        return hit
+
+    # groups: every task its own, or (fused) a pointwise task whose value
+    # reaches one task only joins that task's group, from the end backwards
+    group = {t: t for t in tasks}
+    if granularity == "fused":
+        def consumers(nd, out: set) -> set:
+            for u in nd.users:
+                if u in is_task or not FX.is_transparent(u):
+                    out.add(u)
+                else:
+                    consumers(u, out)
+            return out
+        for t in reversed(tasks):
+            if FX.is_pointwise(t):
+                (c, *more) = consumers(t, set()) or (None,)
+                if c is not None and not more and c in is_task:
+                    group[t] = group[c]
+    pos = {nd: i for i, nd in enumerate(nodes)}
+    roots = sorted({group[t] for t in tasks}, key=pos.__getitem__)
+    tid = {r: i for i, r in enumerate(roots)}
+    vwgt = np.zeros(len(roots), np.float64)
+    for t in tasks:
+        vwgt[tid[group[t]]] += FX.node_flops(t)
+    vwgt = np.maximum(vwgt, 1.0)
+
+    edges: dict[tuple[int, int], float] = defaultdict(float)
+    for t in tasks:
+        b = tid[group[t]]
+        for i in FX.input_nodes(t):
+            prods = resolve(i)
+            if not prods:
+                continue
+            per = FX.node_bytes(i) / len(prods)
+            for p in prods:
+                a = tid[group[p]]
+                if a != b and per > 0.0:
+                    edges[(a, b) if a < b else (b, a)] += per
+    n = len(roots)
+    if n == 0:
+        raise ValueError("exported graph has no tasks")
+    if edges:
+        uv = np.array(list(edges.keys()), np.int64)
+        u, v = uv[:, 0], uv[:, 1]
+        w = np.array(list(edges.values()), np.float64)
+    else:
+        u = v = np.zeros(0, np.int64)
+        w = np.zeros(0, np.float64)
+    return TaskGraph.from_edges(n, u, v, w, vwgt=vwgt)

@@ -10,7 +10,8 @@ axis 0. The xLSTM stack (``layer{i}``) and the other leaves (``embed``,
 norms, ``patch_proj``, ``pos_enc``, ``pos_dec``) are copied as they are.
 Weight matrices keep the reference's ``[in, out]`` layout (the port applies
 them as ``x @ w``), so none is transposed. Nothing here imports JAX: the
-caller converts its arrays with ``np.asarray``.
+caller converts its arrays with ``np.asarray``. ``to_reference_tree`` goes
+the other way (the checkpoint writes the reference's layout with it).
 """
 from __future__ import annotations
 
@@ -30,16 +31,8 @@ def params_from_jax(cfg: ModelConfig, params, device=None):
     model = (EncDecLM if cfg.is_encoder_decoder else DecoderLM)(cfg, device="meta")
     leaves = set()
     for name, w in list(model.named_parameters()):
-        parts = name.split(".")
-        # <stack>.<i>.<path> <- <stack>[<path>][i]; any other name <- its path
-        stacked = len(parts) > 1 and parts[1].isdigit()
-        path = [parts[0]] + parts[2:] if stacked else parts
-        src = params
-        for key in path:
-            src = src[key]
-        src = np.asarray(src)
-        if stacked:
-            src = src[int(parts[1])]
+        path, _ = reference_path(name)
+        src = reference_leaf(params, name)
         if tuple(src.shape) != tuple(w.shape):
             raise ValueError(f"{name}: reference shape {src.shape}, port {tuple(w.shape)}")
         set_param(model, name, param(torch.as_tensor(np.array(src, dtype=np.float32),
@@ -59,3 +52,51 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def reference_path(name: str) -> tuple[list[str], int | None]:
+    """The reference's key path of the port's parameter ``name`` and the
+    layer index along its stacked leading axis (``None`` if unstacked):
+    ``<stack>.<i>.<path>`` is ``<stack>/<path>`` [i]; any other name is its
+    own path."""
+    parts = name.split(".")
+    if len(parts) > 1 and parts[1].isdigit():
+        return [parts[0]] + parts[2:], int(parts[1])
+    return parts, None
+
+
+def reference_leaf(tree, name: str) -> np.ndarray:
+    """The slice of the reference's nested dicts ``tree`` that the port's
+    parameter ``name`` holds."""
+    path, i = reference_path(name)
+    for key in path:
+        tree = tree[key]
+    tree = np.asarray(tree)
+    return tree[i] if i is not None else tree
+
+
+def to_reference_tree(named: dict) -> dict:
+    """Tensors keyed by the port's parameter names (``named_parameters()``,
+    or the optimizer's ``mu``/``nu``) -> the reference's nested dicts of
+    numpy arrays, each stacked leaf stacked again along axis 0."""
+    stacks: dict[tuple, dict[int, np.ndarray]] = {}
+    tree: dict = {}
+    for name, w in named.items():
+        path, i = reference_path(name)
+        a = (w.detach().to("cpu", copy=True).numpy() if isinstance(w, torch.Tensor)
+             else np.asarray(w))
+        if i is None:
+            _put(tree, path, a)
+        else:
+            stacks.setdefault(tuple(path), {})[i] = a
+    for path, layers in stacks.items():
+        if sorted(layers) != list(range(len(layers))):
+            raise ValueError(f"{'/'.join(path)}: layers {sorted(layers)} are not 0..L-1")
+        _put(tree, list(path), np.stack([layers[i] for i in range(len(layers))]))
+    return tree
+
+
+def _put(tree: dict, path: list[str], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value

@@ -4,9 +4,9 @@ The port of ``repro/models/layers.py``. Parameters keep the reference's
 names and layouts: weight matrices are ``[in, out]`` and are applied as
 ``x @ w``; a group of parameters is an ``nn.ParameterDict`` so the
 functions below index it as the reference indexes its dicts. Parameters
-are f32 masters (``PDTYPE``) that never require a gradient (the port only
-serves); every function casts them to the dtype of ``x``, as the reference
-does.
+are f32 masters (``PDTYPE``) that require no gradient for serving; the
+train state turns it on (``train/train_step.py``). Every function casts
+them to the dtype of ``x``, as the reference does.
 """
 from __future__ import annotations
 

@@ -10,8 +10,10 @@
     scan_trip_hints(cfg, seq_len, mode)            -> while-loop trip counts
 
 The port of ``repro/models/model.py``, every family on one device.
-``loss_fn`` is the forward value only: training is ROADMAP.md, Queue 1,
-item 9, "``train/``".
+``loss_fn`` is differentiable (grad mode follows the caller, as the
+reference's ``loss_fn`` is a plain function that ``jax.value_and_grad``
+differentiates; ``train/train_step.py``); the serving entry points run
+under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -36,7 +38,6 @@ def init_fn(cfg: ModelConfig, generator: torch.Generator | int = 0, device=None)
     return tfm.init_params(cfg, generator)
 
 
-@torch.no_grad()
 def loss_fn(cfg: ModelConfig, params, batch, ctx: ShardCtx | None = None):
     """Mean next-token cross-entropy (f32 scalar) of ``batch`` (``tokens``,
     ``labels``; ``frames`` or ``patch_embeds`` for the stub frontends)."""

@@ -12,8 +12,11 @@ a module of its own and the scan is a Python loop:
 * vlm: text tokens after precomputed patch embeddings (``patch_proj``, the
   frontend stub).
 
-Nothing here runs backward, so the reference's remat has no counterpart;
-``lm_loss`` is the forward value of the training objective.
+``lm_loss`` is the training objective, differentiable: with grad mode on,
+``backbone`` recomputes each layer in the backward pass as ``ctx.remat``
+says (``sharding.remat``: per block, per hybrid super-block, per xLSTM
+layer, as the reference's ``jax.checkpoint``); the prefill keeps every
+layer's forward only (``remat=False``), as the reference's.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from .config import ModelConfig
 from .layers import (CDTYPE, apply_mlp, apply_norm, embed_params, embed_tokens,
                      mlp_params, norm_params, param, softmax_xent, unembed)
 from .moe import apply_moe, moe_params
-from .sharding import ShardCtx
+from .sharding import ShardCtx, remat as _remat
 
 
 def _split_kind(kind: str) -> tuple[str, str]:
@@ -154,17 +157,26 @@ def _apply_block(cfg: ModelConfig, p, x, kind: str, ctx: ShardCtx | None):
     return x + out
 
 
-def backbone(cfg: ModelConfig, params: DecoderLM, x, ctx: ShardCtx | None):
-    """x [B,S,D] -> [B,S,D] hidden states."""
+def backbone(cfg: ModelConfig, params: DecoderLM, x, ctx: ShardCtx | None,
+             remat: bool = True):
+    """x [B,S,D] -> [B,S,D] hidden states; ``remat``: each layer (a hybrid
+    super-block) is recomputed in the backward pass as ``ctx.remat`` says."""
     kinds = cfg.layer_kinds()
     cast = ctx is not None and ctx.cast_params_once and cfg.family != "ssm"
+
+    def layer_fn(i, layer):
+        def run(h):
+            p = _cast_block(layer) if cast else layer
+            if cfg.family == "hybrid":
+                for j, kind in enumerate(kinds):
+                    h = _apply_block(cfg, p[f"sub{j}"], h, kind, ctx)
+                return h
+            return _apply_block(cfg, p, h, kinds[i if cfg.family == "ssm" else 0], ctx)
+        return run
+
     for i, layer in enumerate(params.layers()):
-        p = _cast_block(layer) if cast else layer
-        if cfg.family == "hybrid":
-            for j, kind in enumerate(kinds):
-                x = _apply_block(cfg, p[f"sub{j}"], x, kind, ctx)
-        else:
-            x = _apply_block(cfg, p, x, kinds[i if cfg.family == "ssm" else 0], ctx)
+        run = layer_fn(i, layer)
+        x = _remat(ctx, run, x) if remat else run(x)
     return apply_norm(cfg, params.final_norm, x)
 
 
@@ -277,5 +289,5 @@ def prefill(cfg: ModelConfig, params: DecoderLM, batch, ctx: ShardCtx | None = N
     """Prefill forward: last-position logits [B,1,V] (no cache is written,
     as in the reference; the Engine fills its cache by decoding)."""
     x, _ = embed_inputs(cfg, params, batch, ctx)
-    h = backbone(cfg, params, x, ctx)
+    h = backbone(cfg, params, x, ctx, remat=False)
     return unembed(cfg, params.embed, h[:, -1:, :])

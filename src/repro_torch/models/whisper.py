@@ -6,7 +6,10 @@ params: ``embed``, ``pos_enc`` [8192, D], ``pos_dec`` [max_target_len, D],
 ``enc`` and ``dec`` (``nn.ModuleList``s, layer i of the reference's stacked
 leaves), ``enc_norm`` and ``final_norm``. As in the reference, the encoder
 and the decoder call ``self_attention`` without a ``ShardCtx``, so they run
-``_sdpa`` and no kernel.
+``_sdpa`` and no kernel. With grad mode on, each encoder and decoder layer
+is recomputed in the backward pass (``sharding.remat``; the reference
+checkpoints every layer in full whatever its ``remat``, which the port's
+``ctx.remat`` may change: the values are the same).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from . import attention as attn
 from .config import ModelConfig
 from .layers import (CDTYPE, apply_mlp, apply_norm, dense_init, embed_params,
                      embed_tokens, mlp_params, norm_params, softmax_xent, unembed)
-from .sharding import ShardCtx
+from .sharding import ShardCtx, remat
 
 
 def _enc_block_params(cfg: ModelConfig, generator=None, device=None) -> nn.ModuleDict:
@@ -79,12 +82,15 @@ def _positions(table, n: int):
 def encode(cfg: ModelConfig, params: EncDecLM, frames, ctx: ShardCtx | None = None):
     """frames [B, T, D] (stub conv output) -> encoder states [B, T, D]."""
     x = frames.to(CDTYPE) + _positions(params.pos_enc, frames.shape[1])[None]
-    for p in params.enc:
-        a = apply_norm(cfg, p["norm1"], x)
+
+    def layer(p, h):
+        a = apply_norm(cfg, p["norm1"], h)
         out, _ = attn.self_attention(cfg, p["attn"], a, causal=False)
-        x = x + out
-        a = apply_norm(cfg, p["norm2"], x)
-        x = x + apply_mlp(cfg, p["mlp"], a)
+        h = h + out
+        a = apply_norm(cfg, p["norm2"], h)
+        return h + apply_mlp(cfg, p["mlp"], a)
+    for p in params.enc:
+        x = remat(ctx, layer, p, x)
     return apply_norm(cfg, params.enc_norm, x)
 
 
@@ -102,14 +108,17 @@ def decode_train(cfg: ModelConfig, params: EncDecLM, tokens, memory,
                  ctx: ShardCtx | None = None):
     """Teacher-forced decoder. tokens [B,S]; memory [B,T,D]."""
     x = embed_tokens(params.embed, tokens) + _positions(params.pos_dec, tokens.shape[1])[None]
-    for p in params.dec:
-        a = apply_norm(cfg, p["norm1"], x)
+
+    def layer(p, h, mem):
+        a = apply_norm(cfg, p["norm1"], h)
         out, _ = attn.self_attention(cfg, p["attn"], a, causal=True)
-        x = x + out
-        a = apply_norm(cfg, p["norm2"], x)
-        x = x + attn.cross_attention(cfg, p["xattn"], a, _memory_kv(cfg, p, memory))
-        a = apply_norm(cfg, p["norm3"], x)
-        x = x + apply_mlp(cfg, p["mlp"], a)
+        h = h + out
+        a = apply_norm(cfg, p["norm2"], h)
+        h = h + attn.cross_attention(cfg, p["xattn"], a, _memory_kv(cfg, p, mem))
+        a = apply_norm(cfg, p["norm3"], h)
+        return h + apply_mlp(cfg, p["mlp"], a)
+    for p in params.dec:
+        x = remat(ctx, layer, p, x, memory)
     return apply_norm(cfg, params.final_norm, x)
 
 

@@ -289,10 +289,15 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.serve.tracker, repro_torch.serve.admission, repro_torch.serve.store, "
             "repro_torch.serve.mapper, repro_torch.serve.supervisor, "
             "repro_torch.launch.hlo_analysis, repro_torch.launch.comm_graph, "
-            "repro_torch.launch.mesh; "
+            "repro_torch.launch.mesh, repro_torch.launch.fx_analysis, "
+            "repro_torch.launch.train, repro_torch.data.pipeline, "
+            "repro_torch.train.optimizer, repro_torch.train.train_step, "
+            "repro_torch.train.checkpoint, repro_torch.train.compression, "
+            "repro_torch.train.fault_tolerance; "
             "[repro_torch.configs.registry.get_config(a) for a in "
             "repro_torch.configs.registry.ARCHS]; "
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'msgpack')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
