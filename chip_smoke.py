@@ -38,17 +38,23 @@
    ``from_graph`` and ``to_graph`` are printed). Its canonical CSR orders
    each row's neighbours otherwise than ``gen_rgg``'s, so its ``pe_of`` is
    held against the fourth run's, on that CSR as a ``Graph``. Every path
-   reads the launch counts around its run. The fourth run, under ``ell``,
+   reads the launch counts around its run. Both backends' J are held to
+   MAIN_PATH_J and MAIN_PATH_J_XLA, and the widest level's wall (48 lanes
+   at 2^15, one batched v-cycle), both runs' peak memory and the widest
+   dispatch again on its captured inputs are printed: one
+   ``batched_partition`` call profiled (device ops, busy share), one
+   unprofiled (seconds, peak), then its lanes one at a time, all three
+   with equal labels. The fourth run, under ``ell``,
    puts a CUDA event pair around every launch of the five mapping kernels
-   and prints, per kernel and per padded size, the launches, the summed ms
-   and the median ms per launch. It captures, at each padded size of a
-   partition call (2^20, 2^18, 2^15), the inputs of the first
-   ``contract_edges`` call of the first partition call there, of the last
-   ``lp_gain`` call of the last one, and of the first and third
-   ``hem_propose`` calls (rounds 1 and 3 of the first coarsening level
-   there); each is held bitwise against its plain version and timed at all
-   three. The main path's own ``mapcost``
-   call (J of the final ``pe_of``) is held and timed too.
+   and prints, per kernel and per (lanes, padded size) of a launch
+   (1 x 2^20, 6 x 2^18, 48 x 2^15), the launches, the summed ms and the
+   median ms per launch. It captures, at each of those, the inputs of the
+   first ``contract_edges`` call there, of the last ``lp_gain`` call, and
+   of the first and third ``hem_propose`` calls (rounds 1 and 3 of the
+   first coarsening level there); each is held bitwise against its plain
+   version and timed at all three, the batched shapes included. The main
+   path's own ``mapcost`` call (J of the final ``pe_of``) is held and
+   timed too.
 7. The paper's quality comparison (the JAX package's
    ``benchmarks/run.py:quality_profiles``): on the small instances of
    phase 3 under ``ell`` and ``xla`` pinned, ``shared_map`` of a
@@ -268,25 +274,42 @@ def _capture(module, name: str, store: list):
 MAPPING_KERNELS = ("gather_rows", "hem_propose", "contract_edges", "mapcost", "lp_gain")
 
 
+def _launch_key(name: str, args) -> tuple[int, int]:
+    """A launch's (lanes, padded size): ``(B, N)`` of the ELL kernels'
+    ``[B, N, ...]`` inputs (``(1, N)`` for a graph alone), the shape of
+    ``gather_rows``' index (children, padded N or M), ``(1, M)`` for
+    ``mapcost``."""
+    a = args[0]
+    if name == "gather_rows":
+        return tuple(args[1].shape)
+    if name == "mapcost" or a.dim() == 2:
+        return (1, int(a.shape[0]))
+    return (int(a.shape[0]), int(a.shape[1]))
+
+
+def _key_str(key) -> str:
+    return f"{key[0]}x{key[1]}"
+
+
 def _timed_main_path(run, kops):
     """Run ``run()`` with a CUDA event pair around every launch of the
     mapping kernels (the routes in ``kops``), each behind a spin so that the
     pair reads the card's time for the launch (see PAD_CYCLES). Returns
-    ``(out, times, captures)``: ``times[kernel][n]`` lists each launch's ms
-    by the leading size n of its first input (the padded N for the ELL
-    kernels, M for ``mapcost``), and ``captures[kernel][n]`` the arguments
-    of the first ``contract_edges`` call at n (that of the first partition
-    call there), of the last ``lp_gain`` call at n (the last partition
-    call's; its labels cloned), of the first three ``hem_propose`` calls at
-    n (the three matching rounds of the first coarsening level there), and
-    of the last ``mapcost`` call (the J of the final mapping)."""
+    ``(out, times, captures)``: ``times[kernel][key]`` lists each launch's
+    ms by its (lanes, padded size) key (:func:`_launch_key`), and
+    ``captures[kernel][key]`` the arguments of the first ``contract_edges``
+    call at that key (that of the first partition call there), of the last
+    ``lp_gain`` call (the last partition call's; its labels cloned), of the
+    first three ``hem_propose`` calls (the three matching rounds of the
+    first coarsening level there), and of the last ``mapcost`` call (the J
+    of the final mapping)."""
     import torch
     marks, caps = [], {"contract_edges": {}, "lp_gain": {}, "hem_propose": {}, "mapcost": {}}
     saved = {name: getattr(kops, name) for name in MAPPING_KERNELS}
 
     def hook(name, orig):
         def timed(*args):
-            n = int(args[0].shape[0])
+            n = _launch_key(name, args)
             if name == "contract_edges":
                 caps[name].setdefault(n, args)
             elif name == "lp_gain":
@@ -323,59 +346,69 @@ def _timed_main_path(run, kops):
 
 def _contract_case(args):
     """A captured ``contract_edges`` call as ``(label, kernel, plain, args,
-    bytes, operations, library)``. Bytes: each input read once, each output
+    bytes, operations, library)``; ``cand`` [B, N, D2] (or [N, D2]), the
+    B * N rows of one launch. Bytes: each input read once, each output
     written once. Operations: what this data needs, one compare-add for
     each pair of live slots of a row."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     cand, candw = args
-    N, D2 = cand.shape
-    live = (cand != N).sum(1, dtype=torch.int64)
-    return (f"[{N}, {D2}], {int(live.sum())} live slots",
+    N, D2 = cand.shape[-2:]
+    T = cand.numel() // D2
+    live = (cand != N).sum(-1, dtype=torch.int64)
+    return (f"{_key_str(_launch_key('contract_edges', args))} x {D2}, "
+            f"{int(live.sum())} live slots",
             lambda a, b: kops.contract_edges_cuda(a, b, N),
             lambda a, b: ref.contract_edges_ref(a, b, N), (cand, candw),
-            16 * N * D2 + 4 * N, int((live * live).sum()), None)
+            16 * T * D2 + 4 * T, int((live * live).sum()), None)
 
 
 def _lp_gain_case(args):
-    """A captured ``lp_gain`` call, as :func:`_contract_case`. Operations:
+    """A captured ``lp_gain`` call, as :func:`_contract_case`: ``adj``
+    [B, N, DEG], ``parts`` [B, R, N] (or without the lane axis). Operations:
     one add per live slot and restart. Library: ``scatter_add_`` of conn."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     adj, adw, parts, k = args
-    N, DEG = adj.shape
-    R = parts.shape[0]
-    nbr = torch.where(adj < N, parts[:, adj.clamp(0, N - 1)], 0).long()
+    lanes = adj if adj.dim() == 3 else adj[None]
+    B, N, DEG = lanes.shape
+    R = parts.shape[-2]
+    labels = parts.reshape(B, R, N)
+    ids = lanes.clamp(0, N - 1).long().reshape(B, 1, -1).expand(B, R, N * DEG)
+    nbr = torch.where(lanes[:, None] < N, labels.gather(2, ids).view(B, R, N, DEG), 0).long()
+    nbr = nbr.view(*parts.shape[:-1], N, DEG)
     live = int((adj < N).sum())
-    return (f"N={N} DEG={DEG} R={R} k={k}, {live} live slots",
+    return (f"{_key_str(_launch_key('lp_gain', args))}, DEG={DEG} R={R} k={k}, "
+            f"{live} live slots",
             lambda a, w, p: kops.lp_gain_cuda(a, w, p, k),
             lambda a, w, p: ref.lp_gain_ref(a, w, p, k), (adj, adw, parts),
-            8 * N * DEG + 4 * R * N + R * N * (4 * k + 8), R * live,
-            lambda a, w, p: torch.zeros(R, N, k, device=a.device).scatter_add_(
-                2, nbr, w.expand(R, N, DEG)))
+            8 * B * N * DEG + 4 * B * R * N + B * R * N * (4 * k + 8), R * live,
+            lambda a, w, p: torch.zeros(*nbr.shape[:-1], k, device=a.device).scatter_add_(
+                -1, nbr, w.unsqueeze(-3).expand(nbr.shape)))
 
 
 def _hem_case(args):
-    """A captured ``hem_propose`` call, as :func:`_contract_case`. Bytes:
-    the ids, weights and jitters of every unmatched row (a matched row
-    proposes N from its flag alone), and every row's flag and proposal.
-    Operations: one score (a multiply, an add and a fused multiply-add) per
-    valid slot."""
+    """A captured ``hem_propose`` call, as :func:`_contract_case` (``adj``
+    [B, N, DEG] or [N, DEG]). Bytes: the ids, weights and jitters of every
+    unmatched row (a matched row proposes N from its flag alone), and every
+    row's flag and proposal. Operations: one score (a multiply, an add and
+    a fused multiply-add) per valid slot."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
     adj, adw, jit, matched = args
-    N, DEG = adj.shape
+    N, DEG = adj.shape[-2:]
     free = matched == 0
     u = torch.arange(N, device=adj.device)[:, None]
-    valid = (free[:, None] & (adj < N) & (adj != u)
-             & (matched[adj.clamp(0, N - 1)] == 0))
+    nbr_free = free.gather(-1, adj.clamp(0, N - 1).long().reshape(*free.shape[:-1], -1))
+    valid = (free[..., None] & (adj < N) & (adj != u) & nbr_free.view(adj.shape))
     live = int(free.sum())
-    return (f"[{N}, {DEG}], {live} unmatched rows, {int(valid.sum())} valid slots",
+    return (f"{_key_str(_launch_key('hem_propose', args))} x {DEG}, {live} unmatched rows, "
+            f"{int(valid.sum())} valid slots",
             lambda *a: kops.hem_propose_cuda(*a), ref.hem_propose_ref, args,
-            12 * DEG * live + 8 * N, 4 * int(valid.sum()), None)
+            12 * DEG * live + 8 * matched.numel(), 4 * int(valid.sum()), None)
 
 
 def _mapcost_case(args):
@@ -407,6 +440,60 @@ def _run_path(name, fn, expect, _build):
     if missing:
         raise AssertionError(f"{name}: kernels of the path never launched: {missing}")
     return out, seconds, launches
+
+
+def _widest_dispatch(args, _build) -> None:
+    """Phase 6's widest dispatch (the main path's 48 lanes at 2^15 under
+    ``ell``), again on its captured inputs: one ``batched_partition`` call
+    profiled (device ops, busy share, launches), one unprofiled with its
+    peak memory, then its lanes one at a time (B = 1 calls, as the lanes
+    ran before they were batched). All three must give the same labels."""
+    import torch
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.partition import (Preset, batched_partition, lane_bytes,
+                                            lanes_per_chunk)
+    gs, k, eps, salts, levels, preset, backend, deg = args
+    B = len(salts)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        whole = batched_partition(*args)
+        torch.cuda.synchronize()
+    t_prof = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    ops = sum(e.count for e in events)
+    del prof
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    again = batched_partition(*args)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    alone = torch.cat([batched_partition(Graph(*(a[i:i + 1] for a in gs)), k, eps[i:i + 1],
+                                         salts[i:i + 1], levels, preset, backend, deg)
+                       for i in range(B)])
+    torch.cuda.synchronize()
+    t_alone = time.perf_counter() - t0
+    if not (torch.equal(whole, again) and torch.equal(whole, alone)):
+        raise AssertionError("the widest dispatch: the batched call and its lanes one at a "
+                             "time give other labels")
+    chunk = lanes_per_chunk(lane_bytes(gs.N, gs.M, k, levels, Preset.get(preset).restarts,
+                                       deg))
+    print(f"widest dispatch: {B} lanes at N={gs.N} M={gs.M}, k={k}, {levels} levels, "
+          f"{preset}, {backend}, cap {deg}, {chunk} lanes a chunk: batched {t_batch:.2f} s (peak {peak / 1e9:.2f} GB above the "
+          f"{base / 1e9:.2f} GB held), under the profiler {t_prof:.2f} s with {ops} device ops, "
+          f"device busy {busy:.3f} s, launches {launches}; the lanes one at a time "
+          f"{t_alone:.2f} s ({t_alone / t_batch:.1f}x); equal labels", flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"widest dispatch profile:   {e.self_device_time_total / 1e3:10.2f} ms  "
+              f"{e.count:7d}x  {e.key[:90]}", flush=True)
 
 
 def _flash_pairs(S: int, causal: bool, window: int) -> int:
@@ -1634,6 +1721,7 @@ QUALITY = ("shared_map(tg)", "refine_mapping", "global_multisection", "kaffpa_ma
            "random_mapping", "greedy_baseline")
 KAFFPA_HIERARCHY = ("4:8:4", "1:10:100")   # k = 128: the nearest paper hierarchy with k = 2^j
 MAIN_PATH_J = 1_698_496    # J of the main path (rgg 2^20 on 4:8:6) under ell
+MAIN_PATH_J_XLA = 1_385_053   # and under xla pinned
 # phase 8 (a): benchmarks/run.py:bench_serve at its full size
 SERVE_R, SERVE_N, SERVE_H = 24, 64, ("2:2:2:2", "1:5:10:100")
 # (c)-(e): the requests coalesced, sent to workers, shadowed; cut from 2^16
@@ -2330,8 +2418,13 @@ def main() -> int:
         out = shared_map(graph, h, cfg, device=dev)
         return out, torch.cuda.max_memory_allocated()
     no_lp = [k for k in every if k != "lp_gain"]
-    (res, peak), t_first, launches = _run_path(
-        "main path", lambda: main_path(SharedMapConfig()), every, _build)
+    dispatches = {}   # every batched_partition call of a run, to keep its widest
+    saved_bp = _capture(MS, "batched_partition", dispatches.setdefault("ell", []))
+    try:
+        (res, peak), t_first, launches = _run_path(
+            "main path", lambda: main_path(SharedMapConfig()), every, _build)
+    finally:
+        MS.batched_partition = saved_bp
     (res_x, peak_x), t_xla, launches_x = _run_path(
         "xla pinned", lambda: main_path(SharedMapConfig(backend="xla")), no_lp, _build)
     (res2, _), t_second, _ = _run_path(
@@ -2364,6 +2457,16 @@ def main() -> int:
             raise AssertionError(f"J {r.J} not below the random mapping's {j_rand}")
     print(f"main path: the TaskGraph's run J {res2.J} against gen_rgg's Graph's {res.J}, "
           f"pe_of equal on {int((res2.pe_of == pe).sum())} of {n} vertices", flush=True)
+    if res.J != MAIN_PATH_J or res_x.J != MAIN_PATH_J_XLA:
+        raise AssertionError(f"main path J {res.J} (ell) / {res_x.J} (xla), expected "
+                             f"{MAIN_PATH_J} / {MAIN_PATH_J_XLA}")
+    # the widest level: one batched v-cycle for its lanes (the reference's vmap)
+    wide = [x["seconds"] for x in res.stats["levels"]], [x["seconds"] for x in
+                                                         res_x.stats["levels"]]
+    print(f"main path {res.stats['levels'][-1]['graphs']}-graph level: ell {wide[0][-1]:.2f} s "
+          f"of {t_first:.2f} s, xla {wide[1][-1]:.2f} s of {t_xla:.2f} s; peak memory ell "
+          f"{peak / 1e9:.2f} GB, xla {peak_x / 1e9:.2f} GB", flush=True)
+    _widest_dispatch(max(dispatches.pop("ell"), key=lambda a: len(a[3])), _build)
 
     # every launch of the mapping kernels timed, in a fourth run under ell, on
     # the TaskGraph's CSR as a Graph; contract_edges and lp_gain held and
@@ -2374,41 +2477,47 @@ def main() -> int:
         _build)
     if not np.array_equal(out_t[0].pe_of, res2.pe_of):
         raise AssertionError("shared_map of the TaskGraph and of its Graph gave other pe_of")
-    by_n = {}
+    by_n = {}   # by (lanes, padded size), the largest size first
+
+    def by_size(keys):
+        return sorted(keys, key=lambda key: (-key[1], -key[0]))
     for name in MAPPING_KERNELS:
         per = times.get(name, {})
         if sum(map(len, per.values())) != launches_t[name]:
             raise AssertionError(f"{name}: {sum(map(len, per.values()))} timed calls, "
                                  f"{launches_t[name]} launches")
-        by_n[name] = {str(n): {"launches": len(v), "ms": sum(v),
-                               "ms_per_launch": statistics.median(v)}
-                      for n, v in sorted(per.items(), reverse=True)}
+        by_n[name] = {_key_str(n): {"launches": len(per[n]), "ms": sum(per[n]),
+                                    "ms_per_launch": statistics.median(per[n])}
+                      for n in by_size(per)}
         print(f"main path, every launch timed: {name} {launches_t[name]} launches, "
-              f"{sum(map(sum, per.values())):.4f} ms in all; " + "; ".join(
-                  f"n={n}: {d['launches']} launches, {d['ms']:.4f} ms, median "
-                  f"{d['ms_per_launch']:.5f} ms" for n, d in by_n[name].items()), flush=True)
+              f"{sum(map(sum, per.values())):.4f} ms in all; by lanes x padded size: "
+              + "; ".join(f"{n}: {d['launches']} launches, {d['ms']:.4f} ms, median "
+                          f"{d['ms_per_launch']:.5f} ms" for n, d in by_n[name].items()),
+              flush=True)
     print(f"main path, every launch timed: {t_timed:.2f} s end to end (with the "
           f"events' host cost), on the TaskGraph's CSR as a Graph: pe_of equal to the "
           f"TaskGraph run's", flush=True)
+    # each held bitwise and timed at every (lanes, padded size) of the run,
+    # the batched levels' shapes included
     for name, case in (("contract_edges", _contract_case), ("lp_gain", _lp_gain_case)):
-        top_n = max(caps[name])
-        for n in sorted(caps[name], reverse=True):   # the root's shape joins the line
+        keys = by_size(caps[name])
+        for n in keys:   # the root's shape joins the line
             label, kernel, plain, args, nbytes, flops, lib = case(caps[name][n])
             row = check(name, kernel, plain, args, True, nbytes, flops, library=lib,
-                        record=n == top_n, label=f" at {label}")
-            by_n[name][str(n)].update(
+                        record=n == keys[0], label=f" at {label}")
+            by_n[name][_key_str(n)].update(
                 kernel_ms=row["ms"], device_ms=row["device_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 plain_ms=row["plain_ms"], library_ms=row["library_ms"])
-    # hem_propose in rounds 1 and 3 of the first coarsening level at each N
-    # (the line's row is phase 2's, the root's round 1)
-    for n in sorted(caps["hem_propose"], reverse=True):
+    # hem_propose in rounds 1 and 3 of the first coarsening level at each
+    # size (the line's row is phase 2's, the root's round 1)
+    for n in by_size(caps["hem_propose"]):
         calls = caps["hem_propose"][n]
         for rnd in (1, 3):
             label, kernel, plain, args, nbytes, flops, _ = _hem_case(calls[rnd - 1])
             row = check("hem_propose", kernel, plain, args, True, nbytes, flops,
                         record=False, label=f" round {rnd} at {label}")
-            by_n["hem_propose"][str(n)][f"round{rnd}"] = {
+            by_n["hem_propose"][_key_str(n)][f"round{rnd}"] = {
                 k: row[k] for k in ("ms", "device_ms", "bound_ms", "bound_by", "plain_ms")}
     # mapcost on the main path's own final pe_of
     (m_args,) = caps["mapcost"].values()

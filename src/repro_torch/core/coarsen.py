@@ -9,7 +9,9 @@ row's (<= 2) member rows with the ``contract_edges`` kernel and writes the
 result straight into the relabelled CSR (a permutation, so the result is
 deterministic and ``rows`` stays sorted). Rows beyond the DEG cap are
 truncated; coarsening is a heuristic, and cut and balance are always
-evaluated on the untruncated fine graph.
+evaluated on the untruncated fine graph. Every routine takes one graph or
+the lanes of a batch (a ``[B, ...]`` Graph): one kernel launch covers
+every lane, ids stay lane-local and coarse ids are compacted per lane.
 
 The segment path (:func:`hem_match` / :func:`contract`, ``coarsen_once``
 with ``ell_deg=None``) is the reference's exact edge-array formulation: a
@@ -23,9 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .graph import (F32, I32, Graph, _sorted_offsets, default_ell_deg, edge_mask,
-                    ell_adjacency, resolve_device, segment_sum, sorted_segment_sum,
-                    vertex_mask)
+from .graph import (F32, I32, Graph, _sorted_offsets, as_lanes, default_ell_deg,
+                    edge_mask, ell_adjacency, lane_cumsum, lane_offsets, resolve_device,
+                    segment_sum, sorted_segment_sum, vertex_mask)
 from .refine import _MASK32, _u32
 from ..kernels import ops as kops
 from ..kernels.ref import fma_f32
@@ -58,22 +60,27 @@ def hem_match_ell(g: Graph, adj: torch.Tensor, adw: torch.Tensor,
                   rounds: int = 3, salt: int = 0) -> torch.Tensor:
     """Heavy-edge matching over the ELL adjacency. Returns cluster labels
     [N]: matched pairs share the smaller endpoint's id, unmatched vertices
-    point to themselves."""
-    N = g.N
-    idx = torch.arange(N, dtype=I32, device=g.device)
+    point to themselves. The lanes of a batch (``g`` [B, ...], ``adj``/``adw``
+    [B, N, DEG]) give [B, N]; every lane draws the same salts and hashes its
+    lane-local ids, as it would alone."""
+    gb, single = as_lanes(g)
+    if single:
+        adj, adw = adj[None], adw[None]
+    N = gb.N
+    idx = torch.arange(N, dtype=I32, device=gb.device)
     u2d = idx[:, None].expand(adj.shape)
-    labels = idx
-    matched = (~vertex_mask(g)).to(I32)   # padding can never match
+    labels = idx.expand(adj.shape[:2])
+    matched = (~vertex_mask(gb)).to(I32)   # padding can never match
     for r in range(rounds):
         jit_ = _edge_jitter(u2d, adj, _i32(salt * 7 + 13 + r * _ROUND_SALT))
         prop = kops.hem_propose(adj, adw, jit_, matched)
         proposal = torch.where((prop < N) & (matched == 0), prop, idx)
-        mutual = (proposal != idx) & (proposal[proposal] == idx)
+        mutual = (proposal != idx) & (proposal.gather(1, proposal.long()) == idx)
         leader = torch.minimum(idx, proposal)
         new_match = mutual & (matched == 0)
         labels = torch.where(new_match, leader, labels)
         matched = matched | new_match.to(I32)
-    return labels
+    return labels[0] if single else labels
 
 
 def contract_candidates(g: Graph, labels: torch.Tensor, adj: torch.Tensor,
@@ -83,75 +90,90 @@ def contract_candidates(g: Graph, labels: torch.Tensor, adj: torch.Tensor,
     Returns ``(newid [N], n_coarse, vwgt_c [N], cand [N, 2*DEG],
     candw [N, 2*DEG])``: coarse row u's candidates are the ELL rows of its
     (<= 2) fine members mapped through ``newid``, with padding and
-    intra-cluster edges set to the sentinel N (weight 0).
+    intra-cluster edges set to the sentinel N (weight 0). The lanes of a
+    batch give each with a leading [B] axis (coarse ids compacted per lane).
     """
-    N = g.N
-    dev = g.device
-    vmask = vertex_mask(g)
+    gb, single = as_lanes(g)
+    if single:
+        labels, adj, adw = labels[None], adj[None], adw[None]
+    B, N = labels.shape
+    dev = gb.device
+    vmask = vertex_mask(gb)
     idx = torch.arange(N, dtype=I32, device=dev)
     is_leader = vmask & (labels == idx)
-    rank = torch.cumsum(is_leader.to(I32), 0, dtype=I32) - 1
-    n_coarse = is_leader.sum(dtype=I32)
-    newid = torch.where(vmask, rank[labels], N - 1).to(I32)
+    rank = lane_cumsum(is_leader.to(I32)) - 1
+    n_coarse = is_leader.sum(1, dtype=I32)
+    newid = torch.where(vmask, rank.gather(1, labels.long()), N - 1).to(I32)
 
     # coarse row u's fine members: the leader and (if matched) its partner;
-    # writes of non-members go to the trash slot N, cut off afterwards
-    memA = torch.full((N + 1,), N, dtype=I32, device=dev)
-    memA[torch.where(is_leader, rank, N)] = idx
+    # writes of non-members go to each lane's trash slot N, cut off afterwards
+    members = idx.expand(B, N)
+    memA = torch.full((B, N + 1), N, dtype=I32, device=dev)
+    memA.scatter_(1, torch.where(is_leader, rank, N).long(), members)
     nonleader = vmask & (labels != idx)
-    memB = torch.full((N + 1,), N, dtype=I32, device=dev)
-    memB[torch.where(nonleader, rank[labels.clamp(0, N - 1)], N)] = idx
-    memA, memB = memA[:N], memB[:N]
+    memB = torch.full((B, N + 1), N, dtype=I32, device=dev)
+    memB.scatter_(1, torch.where(nonleader, rank.gather(1, labels.clamp(0, N - 1).long()),
+                                 N).long(), members)
+    memA, memB = memA[:, :N], memB[:, :N]
     hasA = memA < N
     hasB = memB < N
 
     # exact pair sum (each coarse vertex has <= 2 members; pad rows -> 0)
-    vwgt_c = (torch.where(hasA, g.vwgt[memA.clamp(0, N - 1)], 0.0)
-              + torch.where(hasB, g.vwgt[memB.clamp(0, N - 1)], 0.0))
+    vwgt_c = (torch.where(hasA, gb.vwgt.gather(1, memA.clamp(0, N - 1).long()), 0.0)
+              + torch.where(hasB, gb.vwgt.gather(1, memB.clamp(0, N - 1).long()), 0.0))
 
     def member_cands(mem, has):
-        rowsel = mem.clamp(0, N - 1)
-        a = adj[rowsel]                       # [N, DEG] member neighbour ids
-        w = adw[rowsel]
-        cn = newid[a.clamp(0, N - 1)]         # coarse-mapped neighbour
-        ok = has[:, None] & (a < N) & (cn != idx[:, None])  # drop pad + intra
+        rowsel = mem.clamp(0, N - 1).long()[:, :, None].expand(adj.shape)
+        a = adj.gather(1, rowsel)             # [B, N, DEG] member neighbour ids
+        w = adw.gather(1, rowsel)
+        cn = newid.gather(1, a.clamp(0, N - 1).long().view(B, -1)).view(a.shape)
+        ok = has[:, :, None] & (a < N) & (cn != idx[:, None])  # drop pad + intra
         return torch.where(ok, cn, N), torch.where(ok, w, 0.0)
 
     candA, candwA = member_cands(memA, hasA)
     candB, candwB = member_cands(memB, hasB)
-    cand = torch.cat([candA, candB], dim=1).to(I32)
-    candw = torch.cat([candwA, candwB], dim=1)
-    return newid, n_coarse, vwgt_c, cand, candw
+    cand = torch.cat([candA, candB], dim=2).to(I32)
+    candw = torch.cat([candwA, candwB], dim=2)
+    out = (newid, n_coarse, vwgt_c, cand, candw)
+    return tuple(x[0] for x in out) if single else out
 
 
 def contract_ell(g: Graph, labels: torch.Tensor, adj: torch.Tensor,
                  adw: torch.Tensor) -> tuple[Graph, torch.Tensor]:
     """Contract matched pairs via the row-merge kernel (sort-free).
 
-    Returns (coarse graph with the SAME padded shapes, fine->coarse map [N]).
+    Returns (coarse graph with the SAME padded shapes, fine->coarse map
+    [N]); for the lanes of a batch a [B, ...] Graph and [B, N], from one
+    ``contract_edges`` launch over every lane's rows.
     """
-    N, M = g.N, g.M
-    dev = g.device
-    newid, n_coarse, vwgt_c, cand, candw = contract_candidates(g, labels, adj, adw)
+    gb, single = as_lanes(g)
+    if single:
+        labels, adj, adw = labels[None], adj[None], adw[None]
+    B, N, M = labels.shape[0], gb.N, gb.M
+    dev = gb.device
+    newid, n_coarse, vwgt_c, cand, candw = contract_candidates(gb, labels, adj, adw)
     nbr, wsum, cnt = kops.contract_edges(cand, candw)
 
-    indptr_c = torch.cat([torch.zeros(1, dtype=I32, device=dev),
-                          torch.cumsum(cnt, 0, dtype=I32)])
-    m_coarse = indptr_c[-1]
+    indptr_c = torch.cat([torch.zeros(B, 1, dtype=I32, device=dev),
+                          lane_cumsum(cnt)], dim=1)
+    m_coarse = indptr_c[:, -1]
 
     first = nbr < N
-    rank_in_row = torch.cumsum(first.to(I32), 1, dtype=I32) - 1
-    dest = torch.where(first, indptr_c[:N, None] + rank_in_row, M).reshape(-1)
-    dest = torch.where(dest < M, dest, M)       # out of range: dropped
-    rowid = torch.arange(N, dtype=I32, device=dev)[:, None].expand(nbr.shape).reshape(-1)
-    rows_c = torch.full((M + 1,), N - 1, dtype=I32, device=dev)
-    rows_c[dest] = rowid
-    cols_c = torch.full((M + 1,), N - 1, dtype=I32, device=dev)
-    cols_c[dest] = nbr.reshape(-1)
-    ewgt_c = torch.zeros(M + 1, dtype=adw.dtype, device=dev)
-    ewgt_c[dest] = wsum.reshape(-1)
-    gc = Graph(vwgt=vwgt_c, rows=rows_c[:M], cols=cols_c[:M], ewgt=ewgt_c[:M],
-               indptr=indptr_c, n=n_coarse, m=m_coarse)
+    rank_in_row = lane_cumsum(first.to(I32).view(-1, first.shape[-1])).view(first.shape) - 1
+    dest = torch.where(first, indptr_c[:, :N, None] + rank_in_row, M)
+    dest = torch.where(dest < M, dest, M)       # out of range: each lane's trash slot
+    dest = (dest + lane_offsets(B, M + 1, dev)[:, :, None]).reshape(-1)
+    rowid = torch.arange(N, dtype=I32, device=dev)[:, None].expand(nbr.shape[1:])
+    rows_c = torch.full((B, M + 1), N - 1, dtype=I32, device=dev)
+    rows_c.view(-1)[dest] = rowid.expand(nbr.shape).reshape(-1)
+    cols_c = torch.full((B, M + 1), N - 1, dtype=I32, device=dev)
+    cols_c.view(-1)[dest] = nbr.reshape(-1)
+    ewgt_c = torch.zeros(B, M + 1, dtype=adw.dtype, device=dev)
+    ewgt_c.view(-1)[dest] = wsum.reshape(-1)
+    gc = Graph(vwgt=vwgt_c, rows=rows_c[:, :M].contiguous(), cols=cols_c[:, :M].contiguous(),
+               ewgt=ewgt_c[:, :M].contiguous(), indptr=indptr_c, n=n_coarse, m=m_coarse)
+    if single:
+        return Graph(*(a[0] for a in gc)), newid[0]
     return gc, newid
 
 
@@ -161,100 +183,116 @@ def contract_ell(g: Graph, labels: torch.Tensor, adj: torch.Tensor,
 
 def hem_match(g: Graph, rounds: int = 3, salt: int = 0) -> torch.Tensor:
     """Heavy-edge matching over the edge arrays. Returns cluster labels
-    [N]: matched pairs share the smaller endpoint's id; unmatched vertices
-    point to themselves.
+    [N] ([B, N] for the lanes of a batch): matched pairs share the smaller
+    endpoint's id; unmatched vertices point to themselves.
 
     The score ``w * (1 + j) + j`` is rounded once, as XLA fuses it on the
     CPU; an empty row's best is ``-inf`` and its proposal ``INT32_MAX``,
     the reference's ``segment_max``/``segment_min`` identities.
     """
-    N = g.N
-    dev = g.device
-    emask = edge_mask(g)
-    rows, cols = g.rows.long(), g.cols.long()
+    gb, single = as_lanes(g)
+    B, N = gb.vwgt.shape
+    dev = gb.device
+    emask = edge_mask(gb)
+    rows, cols = gb.rows.long(), gb.cols.long()
     idx = torch.arange(N, dtype=I32, device=dev)
-    labels = idx
-    matched = ~vertex_mask(g)   # padding can never match
-    ninf = torch.full((N,), float("-inf"), dtype=F32, device=dev)
-    none = torch.full((N,), torch.iinfo(torch.int32).max, dtype=I32, device=dev)
+    labels = idx.expand(B, N)
+    matched = ~vertex_mask(gb)   # padding can never match
+    ninf = torch.full((B, N), float("-inf"), dtype=F32, device=dev)
+    none = torch.full((B, N), torch.iinfo(torch.int32).max, dtype=I32, device=dev)
     milli = torch.tensor(1e-3, dtype=F32, device=dev)
     for r in range(rounds):
-        free_edge = emask & ~matched[rows] & ~matched[cols] & (rows != cols)
-        jit_ = _edge_jitter(g.rows, g.cols, _i32(salt * 7 + 13 + r * _ROUND_SALT)) * milli
-        score = torch.where(free_edge, fma_f32(g.ewgt, 1.0 + jit_, jit_), float("-inf"))
-        row_best = ninf.scatter_reduce(0, rows, score, "amax")
-        is_best = free_edge & (score >= row_best[rows]) & torch.isfinite(score)
+        free_edge = (emask & ~matched.gather(1, rows) & ~matched.gather(1, cols)
+                     & (rows != cols))
+        jit_ = _edge_jitter(gb.rows, gb.cols, _i32(salt * 7 + 13 + r * _ROUND_SALT)) * milli
+        score = torch.where(free_edge, fma_f32(gb.ewgt, 1.0 + jit_, jit_), float("-inf"))
+        row_best = ninf.scatter_reduce(1, rows, score, "amax")
+        is_best = free_edge & (score >= row_best.gather(1, rows)) & torch.isfinite(score)
         # tie-break: smallest column among best-scoring edges
-        prop_col = none.scatter_reduce(0, rows, torch.where(is_best, g.cols, N), "amin")
+        prop_col = none.scatter_reduce(1, rows, torch.where(is_best, gb.cols, N), "amin")
         proposal = torch.where((prop_col < N) & ~matched, prop_col, idx)
-        mutual = (proposal != idx) & (proposal[proposal] == idx)
+        mutual = (proposal != idx) & (proposal.gather(1, proposal.long()) == idx)
         leader = torch.minimum(idx, proposal)
         new_match = mutual & ~matched
         labels = torch.where(new_match, leader, labels)
         matched = matched | new_match
-    return labels
+    return labels[0] if single else labels
 
 
 def contract(g: Graph, labels: torch.Tensor) -> tuple[Graph, torch.Tensor]:
     """Contract the clusters of ``labels``. Returns (coarse graph with the
-    SAME padded shapes, fine->coarse vertex map [N]).
+    SAME padded shapes, fine->coarse vertex map [N]); for the lanes of a
+    batch a [B, ...] Graph and [B, N].
 
     Edges are sorted by (coarse u, coarse v) with two stable sorts, so each
     coarse edge's fine copies are one contiguous run, summed in that order;
-    the run heads land in order at the front of the coarse arrays.
+    the run heads land in order at the front of the coarse arrays. Each
+    lane sorts its own row; the sums run over the flattened lanes, whose
+    segment ids are offset per lane.
     """
-    N, M = g.N, g.M
-    dev = g.device
-    vmask = vertex_mask(g)
+    gb, single = as_lanes(g)
+    if single:
+        labels = labels[None]
+    B, N, M = labels.shape[0], gb.N, gb.M
+    dev = gb.device
+    vmask = vertex_mask(gb)
     idx = torch.arange(N, dtype=I32, device=dev)
     ar_m = torch.arange(M, dtype=I32, device=dev)
+    off_n, off_m = lane_offsets(B, N, dev), lane_offsets(B, M, dev)
 
     is_leader = vmask & (labels == idx)
-    rank = torch.cumsum(is_leader.to(I32), 0, dtype=I32) - 1
-    n_coarse = is_leader.sum(dtype=I32)
+    rank = lane_cumsum(is_leader.to(I32)) - 1
+    n_coarse = is_leader.sum(1, dtype=I32)
     # fine -> coarse id; padding parked at N-1 with zero weight
-    newid = torch.where(vmask, rank[labels], N - 1).to(I32)
-    vwgt_c = segment_sum(torch.where(vmask, g.vwgt, 0.0), newid, N)
+    newid = torch.where(vmask, rank.gather(1, labels.long()), N - 1).to(I32)
+    vwgt_c = segment_sum(torch.where(vmask, gb.vwgt, 0.0).reshape(-1),
+                         (newid + off_n).to(I32).reshape(-1), B * N).view(B, N)
 
-    cu = newid[g.rows]
-    cv = newid[g.cols]
-    valid = edge_mask(g) & (cu != cv)
+    cu = newid.gather(1, gb.rows.long())
+    cv = newid.gather(1, gb.cols.long())
+    valid = edge_mask(gb) & (cu != cv)
     # sort edges by (cu, cv), invalid ones parked at cu = N, last
-    order1 = torch.sort(torch.where(valid, cv, N), stable=True).indices
-    cu1 = torch.where(valid, cu, N)[order1]
-    cv1, w1 = cv[order1], torch.where(valid, g.ewgt, 0.0)[order1]
-    cu2, order2 = torch.sort(cu1, stable=True)
-    cv2, w2 = cv1[order2], w1[order2]
+    order1 = torch.sort(torch.where(valid, cv, N), dim=1, stable=True).indices
+    cu1 = torch.where(valid, cu, N).gather(1, order1)
+    cv1 = cv.gather(1, order1)
+    w1 = torch.where(valid, gb.ewgt, 0.0).gather(1, order1)
+    cu2, order2 = torch.sort(cu1, dim=1, stable=True)
+    cv2, w2 = cv1.gather(1, order2), w1.gather(1, order2)
 
     valid_s = cu2 < N
-    head = valid_s & ((ar_m == 0) | (cu2 != torch.roll(cu2, 1))
-                      | (cv2 != torch.roll(cv2, 1)))
-    seg = torch.cumsum(head.to(I32), 0, dtype=I32) - 1   # dedup segment per slot
-    agg_w = sorted_segment_sum(torch.where(valid_s, w2, 0.0), seg.clamp(min=0), M)
+    head = valid_s & ((ar_m == 0) | (cu2 != torch.roll(cu2, 1, dims=1))
+                      | (cv2 != torch.roll(cv2, 1, dims=1)))
+    seg = lane_cumsum(head.to(I32)) - 1   # dedup segment per slot
+    agg_w = sorted_segment_sum(torch.where(valid_s, w2, 0.0).reshape(-1),
+                               (seg.clamp(min=0) + off_m).to(I32).reshape(-1),
+                               B * M).view(B, M)
 
-    # heads go to their segment's slot; other writes to the trash slot M
-    slot = torch.where(head, seg, M)
-    rows_c = torch.full((M + 1,), N - 1, dtype=I32, device=dev)
-    rows_c[slot] = cu2
-    cols_c = torch.full((M + 1,), N - 1, dtype=I32, device=dev)
-    cols_c[slot] = cv2
-    m_coarse = head.sum(dtype=I32)
-    in_range = ar_m < m_coarse
-    rows_c = torch.where(in_range, rows_c[:M], N - 1)
-    cols_c = torch.where(in_range, cols_c[:M], N - 1)
+    # heads go to their segment's slot; other writes to each lane's trash slot M
+    slot = (torch.where(head, seg, M) + lane_offsets(B, M + 1, dev)).reshape(-1)
+    rows_c = torch.full((B, M + 1), N - 1, dtype=I32, device=dev)
+    rows_c.view(-1)[slot] = cu2.reshape(-1)
+    cols_c = torch.full((B, M + 1), N - 1, dtype=I32, device=dev)
+    cols_c.view(-1)[slot] = cv2.reshape(-1)
+    m_coarse = head.sum(1, dtype=I32)
+    in_range = ar_m < m_coarse[:, None]
+    rows_c = torch.where(in_range, rows_c[:, :M], N - 1)
+    cols_c = torch.where(in_range, cols_c[:, :M], N - 1)
     ewgt_c = torch.where(in_range, agg_w, 0.0)
     # the real rows are sorted: the CSR prefix is a binary search
-    indptr_c = _sorted_offsets(torch.where(in_range, rows_c, N), N)[: N + 1]
+    indptr_c = _sorted_offsets(torch.where(in_range, rows_c, N), N)[:, : N + 1]
     gc = Graph(vwgt=vwgt_c, rows=rows_c, cols=cols_c, ewgt=ewgt_c,
                indptr=indptr_c, n=n_coarse, m=m_coarse)
+    if single:
+        return Graph(*(a[0] for a in gc)), newid[0]
     return gc, newid
 
 
 def coarsen_once(g: Graph, salt: int = 0, rounds: int = 3,
                  ell_deg: int | None = None) -> tuple[Graph, torch.Tensor]:
-    """One HEM + contraction level. ``ell_deg=None`` runs the segment path;
-    an int runs the ELL kernels (the adjacency is built once and shared by
-    matching and contraction)."""
+    """One HEM + contraction level, of one graph or of every lane of a
+    batch at once. ``ell_deg=None`` runs the segment path; an int runs the
+    ELL kernels (the adjacency is built once and shared by matching and
+    contraction)."""
     if ell_deg is None:
         return contract(g, hem_match(g, rounds=rounds, salt=salt))
     adj, adw, _ = ell_adjacency(g, ell_deg)

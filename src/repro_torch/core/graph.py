@@ -33,8 +33,9 @@ F32 = torch.float32
 
 
 class Graph(NamedTuple):
-    """Padded CSR graph. Stacked containers carry a leading ``[B]`` axis on
-    every field (``n``/``m`` are then ``[B]``)."""
+    """Padded CSR graph. Stacked containers (the lanes of a batch) carry a
+    leading ``[B]`` axis on every field (``n``/``m`` are then ``[B]``); ids
+    stay local to each lane."""
 
     vwgt: torch.Tensor    # [N]   f32 vertex weights (0 on padding)
     rows: torch.Tensor    # [M]   i32 source vertex of each directed edge
@@ -61,6 +62,32 @@ class Graph(NamedTuple):
 
     def to(self, device) -> "Graph":
         return Graph(*(a.to(device) for a in self))
+
+
+def as_lanes(g: Graph) -> tuple[Graph, bool]:
+    """``g`` as a stacked ``[B, ...]`` batch, and whether it was one graph
+    (then B = 1). The batched routines take either and run one code path."""
+    if g.n.dim() == 0:
+        return Graph(*(a[None] for a in g)), True
+    return g, False
+
+
+def lane_offsets(B: int, size: int, device) -> torch.Tensor:
+    """[B, 1] i64 offsets ``b * size``: lane-local ids to ids into the
+    flattened [B * size] arrays of a batch."""
+    return torch.arange(B, dtype=torch.int64, device=device)[:, None] * size
+
+
+def lane_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive i32 prefix sums of the integers ``x`` [B, L] along each
+    row: one scan over the flattened rows, less each row's start (exact for
+    integer totals below 2^31). On the card torch's scan along the last
+    axis of a [B, L] tensor is slow for a few long rows and for many short
+    ones (an H100 took about 9 ms for 1.5 M rows of 48); one flat scan
+    takes a fraction of that."""
+    B, L = x.shape
+    flat = torch.cumsum(x.reshape(-1), 0, dtype=I32).view(B, L)
+    return flat - torch.nn.functional.pad(flat[:-1, -1], (1, 0))[:, None]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -158,13 +185,13 @@ def pad_graph(g: Graph, N: int, M: int) -> Graph:
 
 
 def edge_mask(g: Graph) -> torch.Tensor:
-    """[M] bool: True on real (non-padding) edge slots."""
-    return torch.arange(g.M, dtype=I32, device=g.device) < g.m
+    """[M] bool ([B, M] for a batch): True on real (non-padding) edge slots."""
+    return torch.arange(g.M, dtype=I32, device=g.device) < g.m[..., None]
 
 
 def vertex_mask(g: Graph) -> torch.Tensor:
-    """[N] bool: True on real vertices."""
-    return torch.arange(g.N, dtype=I32, device=g.device) < g.n
+    """[N] bool ([B, N] for a batch): True on real vertices."""
+    return torch.arange(g.N, dtype=I32, device=g.device) < g.n[..., None]
 
 
 _XLA_SUM_WINDOW = 32
@@ -210,7 +237,8 @@ def degrees(g: Graph) -> torch.Tensor:
 
 def sorted_segment_sum(w: torch.Tensor, keys: torch.Tensor, num_segments: int) -> torch.Tensor:
     """[num_segments]: the sums of ``w`` [L] over the runs of equal ``keys``
-    [L] (i32, ascending, in [0, num_segments)); empty segments give 0.
+    [L] (i32, ascending, in [0, num_segments]; the entries keyed
+    ``num_segments`` add to no sum); empty segments give 0.
 
     Each sum is a loop in entry order on either device (``segment_reduce``
     of a 2-D tensor; on the card a 1-D one may go to a tree reduction), the
@@ -241,10 +269,12 @@ def sums_are_exact(g: Graph) -> bool:
     """True when every sum of vertex weights and every sum of edge weights
     of ``g`` is exact in float32 whatever the order of the adds: integer
     weights whose absolute totals are below 2^24 (unit-weight graphs and
-    their contractions). One fetch."""
+    their contractions). For a batch, true when it holds for every lane
+    (each lane's totals below 2^24). One fetch."""
     ok = torch.ones((), dtype=torch.bool, device=g.device)
     for w in (g.vwgt, g.ewgt):
-        ok &= (w == torch.round(w)).all() & (w.abs().sum(dtype=torch.float64) < 2**24)
+        ok &= ((w == torch.round(w)).all()
+               & (w.abs().sum(-1, dtype=torch.float64) < 2**24).all())
     return bool(ok)
 
 
@@ -287,8 +317,10 @@ def label_sums(labels: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
     R = labels.shape[0]
     lane = torch.arange(R, dtype=I32, device=labels.device)[:, None] * k
     flat = torch.where((labels >= 0) & (labels < k), lane + labels, R * k).to(I32)
+    # the unlabelled entries sort last, past the last segment: no sum runs
+    # over them
     return segment_sum(w.expand(labels.shape).reshape(-1), flat.reshape(-1),
-                       R * k + 1)[: R * k].view(R, k)
+                       R * k).view(R, k)
 
 
 def _label_sums_in_order(labels: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
@@ -305,18 +337,42 @@ def row_label_sums(g: Graph, labels: torch.Tensor, w: torch.Tensor, k: int) -> t
     """[R, N, k]: for each vertex u of ``g`` and row r of the edge labels
     ``labels`` [R, M], the weights ``w`` [M] of u's edges labelled b, for b
     in [0, k), added in CSR order; edges labelled outside [0, k) and the
-    padding edges (past ``indptr[N]``) add nothing.
+    padding edges (past ``indptr[N]``) add nothing. For the lanes of a batch
+    ``g`` [B, ...], ``labels`` [B, R, M] and ``w`` [B, M] give [B, R, N, k].
 
-    One segmented sum over the CSR rows, each sum a loop in edge order on
-    either device: the reference's order, so float weights give the
-    reference's bits on the card too (``index_add_`` would add them with
-    atomics there).
+    One segmented sum over the CSR rows of every lane, each sum a loop in
+    edge order on either device: the reference's order, so float weights
+    give the reference's bits on the card too (``index_add_`` would add
+    them with atomics there). The lanes' real edges are first packed end to
+    end (each lane's padding moved behind all of them, past the last
+    segment), so no segment spans a lane's padding: a segment is one
+    thread's serial loop on the card.
     """
-    R, M = labels.shape
-    b = torch.arange(k, dtype=labels.dtype, device=labels.device)
-    vals = torch.where(labels.T[:, :, None] == b, w[:, None, None], 0.0).reshape(M, R * k)
-    out = torch.segment_reduce(vals, "sum", offsets=g.indptr, axis=0, unsafe=True)
-    return out.view(g.N, R, k).permute(1, 0, 2).contiguous()
+    gb, single = as_lanes(g)
+    if single:
+        labels, w = labels[None], w[None]
+    B, R, M = labels.shape
+    N = gb.N
+    dev = labels.device
+    start = torch.cumsum(gb.m, 0) - gb.m                      # [B] first packed slot
+    offsets = (gb.indptr + start[:, None]).reshape(-1)
+    lab = labels.transpose(1, 2)                              # [B, M, R]
+    if B > 1:   # pack the real edges end to end, the padding behind them
+        e = torch.arange(M, dtype=torch.int64, device=dev)
+        m = gb.m.long()[:, None]
+        pad_before = lane_offsets(B, M, dev) - start.long()[:, None]
+        dest = torch.where(e < m, start.long()[:, None] + e,
+                           m.sum() + pad_before + e - m).reshape(-1)
+        lab = torch.empty(B * M, R, dtype=labels.dtype, device=dev).index_copy_(
+            0, dest, lab.reshape(B * M, R))
+        w = torch.empty(B * M, dtype=w.dtype, device=dev).index_copy_(0, dest, w.reshape(-1))
+    b = torch.arange(k, dtype=labels.dtype, device=dev)
+    vals = torch.where(lab.reshape(B * M, R, 1) == b, w.reshape(B * M, 1, 1),
+                       0.0).reshape(B * M, R * k)
+    out = torch.segment_reduce(vals, "sum", offsets=offsets, axis=0, unsafe=True)
+    out = torch.nn.functional.pad(out, (0, 0, 0, 1))   # the last lane's dropped segment
+    out = out.view(B, N + 1, R, k)[:, :N].permute(0, 2, 1, 3).contiguous()
+    return out[0] if single else out
 
 
 _XLA_SCAN_BLOCK = 16
@@ -530,8 +586,10 @@ def take_lanes(g: Graph, sel: torch.Tensor) -> Graph:
 
 def _sorted_offsets(keys_sorted: torch.Tensor, k: int) -> torch.Tensor:
     """[k+2] start of each key 0..k+1 in a sorted i32 key vector: the
-    exclusive prefix of the per-key counts, without a scatter."""
+    exclusive prefix of the per-key counts, without a scatter; [B, k+2]
+    for the [B, L] rows of a batch, each sorted."""
     probe = torch.arange(k + 2, dtype=I32, device=keys_sorted.device)
+    probe = probe.expand(*keys_sorted.shape[:-1], k + 2).contiguous()
     return torch.searchsorted(keys_sorted, probe, out_int32=True)
 
 
@@ -545,57 +603,73 @@ def split_blocks(g: Graph, part: torch.Tensor, orig: torch.Tensor, k: int,
     ``orig`` is the [N] original-vertex-id view of ``g`` (padding holds
     ``sentinel``, which is carried to the child padding). Returns
     ``(children, child_orig [k, N], wsum [k] f32)``; the children's
-    ``n``/``m`` fields are ``[k]``.
+    ``n``/``m`` fields are ``[k]``. For the lanes of a batch (``g`` [B,
+    ...], ``part`` and ``orig`` [B, N]) every step runs once for all lanes
+    and the children are lane-major, ``[B * k, ...]`` (lane i's block b at
+    ``i * k + b``), as splitting each lane alone and concatenating; the
+    gathers read the flattened lanes, each lane's indices offset after its
+    own clip.
 
     Counts come from the sorted block keys (offsets by binary search) and
     child row pointers from the sorted child rows, both exact under the
     sorted-``rows`` invariant, instead of scatter-adds: no atomics piled on
     one padding slot.
     """
-    N, M = g.N, g.M
+    g, single = as_lanes(g)
+    if single:
+        part, orig = part[None], orig[None]
+    B, N, M = g.n.shape[0], g.N, g.M
     dev = g.device
     ar_n = torch.arange(N, dtype=I32, device=dev)
     ar_m = torch.arange(M, dtype=I32, device=dev)
+    lane = torch.arange(B, dtype=I32, device=dev)[:, None]
+    off_n, off_m = lane * N, lane * M   # [B, 1]: lane-local ids -> flat ids
 
     # --- vertices: stable compaction by block ------------------------------
-    blk = torch.where(ar_n < g.n, part[:N].to(I32), k)
-    order = torch.argsort(blk, stable=True).to(I32)
-    voff = _sorted_offsets(blk[order], k)[: k + 1]          # exclusive prefix
-    counts = voff[1:] - voff[:-1]                             # [k]
-    rank = ar_n - voff[blk[order]]
-    relabel = torch.empty(N, dtype=I32, device=dev)
-    relabel[order] = rank                                     # parent -> child id
-    vsrc = voff[:k, None] + ar_n[None, :]
-    v_ok = ar_n[None, :] < counts[:, None]
-    vids = order[vsrc.clamp(0, N - 1)]
-    cvwgt = torch.where(v_ok, kops.gather_rows(g.vwgt, vids), 0.0)
-    corig = torch.where(v_ok, kops.gather_rows(orig, vids), sentinel)
+    blk = torch.where(ar_n < g.n[:, None], part[:, :N].to(I32), k)       # [B, N]
+    keys, order = torch.sort(blk, dim=1, stable=True)
+    order32 = order.to(I32)
+    voff = _sorted_offsets(keys, k)[:, : k + 1]                          # exclusive prefix
+    counts = voff[:, 1:] - voff[:, :-1]                                  # [B, k]
+    rank = ar_n - voff.gather(1, keys.long())
+    relabel = torch.empty(B, N, dtype=I32, device=dev)
+    relabel.scatter_(1, order, rank)                                     # parent -> child id
+    vsrc = voff[:, :k, None] + ar_n                                      # [B, k, N]
+    v_ok = (ar_n < counts[:, :, None]).view(B * k, N)
+    vids = order32.view(-1)[vsrc.clamp(0, N - 1) + off_n[:, :, None]]   # lane-local
+    vids = (vids + off_n[:, :, None]).view(B * k, N)                     # into the flat lanes
+    cvwgt = torch.where(v_ok, kops.gather_rows(g.vwgt.reshape(-1), vids), 0.0)
+    corig = torch.where(v_ok, kops.gather_rows(orig.reshape(-1).to(I32), vids), sentinel)
 
     # --- edges: keep intra-block, relabel endpoints ------------------------
-    emask = ar_m < g.m       # padding anchors (N-1) may alias a real vertex
-    bu = blk[g.rows.clamp(0, N - 1)]
-    bv = blk[g.cols.clamp(0, N - 1)]
-    eb = torch.where(emask & (bu == bv) & (bu < k), bu, k)
-    eorder = torch.argsort(eb, stable=True).to(I32)
-    eoff = _sorted_offsets(eb[eorder], k)[: k + 1]
-    ecounts = eoff[1:] - eoff[:-1]
-    esrc = eoff[:k, None] + ar_m[None, :]
-    e_ok = ar_m[None, :] < ecounts[:, None]
-    eids = eorder[esrc.clamp(0, M - 1)]
-    crows = torch.where(e_ok, kops.gather_rows(relabel[g.rows], eids), N - 1)
-    ccols = torch.where(e_ok, kops.gather_rows(relabel[g.cols], eids), N - 1)
-    cewgt = torch.where(e_ok, kops.gather_rows(g.ewgt, eids), 0.0)
+    emask = ar_m < g.m[:, None]     # padding anchors (N-1) may alias a real vertex
+    bu = blk.view(-1)[g.rows.clamp(0, N - 1) + off_n]
+    bv = blk.view(-1)[g.cols.clamp(0, N - 1) + off_n]
+    eb = torch.where(emask & (bu == bv) & (bu < k), bu, k)               # [B, M]
+    ekeys, eorder = torch.sort(eb, dim=1, stable=True)
+    eoff = _sorted_offsets(ekeys, k)[:, : k + 1]
+    ecounts = eoff[:, 1:] - eoff[:, :-1]
+    esrc = eoff[:, :k, None] + ar_m
+    e_ok = (ar_m < ecounts[:, :, None]).view(B * k, M)
+    eids = eorder.to(I32).view(-1)[esrc.clamp(0, M - 1) + off_m[:, :, None]]
+    eids = (eids + off_m[:, :, None]).view(B * k, M)
+    crows = torch.where(e_ok, kops.gather_rows(relabel.view(-1)[g.rows + off_n].view(-1),
+                                               eids), N - 1)
+    ccols = torch.where(e_ok, kops.gather_rows(relabel.view(-1)[g.cols + off_n].view(-1),
+                                               eids), N - 1)
+    cewgt = torch.where(e_ok, kops.gather_rows(g.ewgt.reshape(-1), eids), 0.0)
 
     # --- exact per-child CSR prefix (matches padded_csr_indptr) ------------
     # child rows are sorted and their padding (N-1) sorts last, so the
     # prefix at row r < N is the count of entries < r; the last is m.
-    probe = ar_n[None, :].expand(k, N).contiguous()
+    ecounts = ecounts.reshape(-1)
+    probe = ar_n[None, :].expand(B * k, N).contiguous()
     cindptr = torch.cat([torch.searchsorted(crows, probe, out_int32=True),
                          ecounts[:, None]], dim=1)
 
-    wsum = label_sums(blk[None], g.vwgt, k)[0]
+    wsum = label_sums(blk, g.vwgt, k).reshape(-1)
     children = Graph(vwgt=cvwgt, rows=crows, cols=ccols, ewgt=cewgt,
-                     indptr=cindptr, n=counts, m=ecounts)
+                     indptr=cindptr, n=counts.reshape(-1), m=ecounts)
     return children, corig, wsum
 
 
@@ -616,22 +690,28 @@ def default_ell_deg(N: int, M: int, cap: int = ELL_DEG_CAP) -> int:
 def ell_adjacency(g: Graph, deg: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """CSR -> padded ELL: ``(adj [N, deg] i32 (pad = N), adw [N, deg] f32
     (0 on padding), overflow [N] bool)``; rows longer than ``deg`` keep
-    their first ``deg`` CSR neighbours and are flagged in ``overflow``.
+    their first ``deg`` CSR neighbours and are flagged in ``overflow``. The
+    lanes of a batch give ``[B, N, deg]`` and ``[B, N]`` (ids lane-local).
 
     Each edge's slot is ``index - indptr[row]`` (sorted-``rows``
     invariant); truncated and padding edges write to a trash slot.
     """
-    N, M = g.N, g.M
-    dev = g.device
+    gb, single = as_lanes(g)
+    B, N, M = gb.n.shape[0], gb.N, gb.M
+    dev = gb.device
     idx = torch.arange(M, dtype=I32, device=dev)
-    emask = idx < g.m
-    r = g.rows.clamp(0, N - 1)
-    pos = idx - g.indptr[r]
+    emask = idx < gb.m[:, None]
+    r = gb.rows.clamp(0, N - 1)
+    pos = idx - gb.indptr.gather(1, r.long())
     valid = emask & (pos >= 0) & (pos < deg)
-    slot = torch.where(valid, r.long() * deg + pos, N * deg)
-    adj = torch.full((N * deg + 1,), N, dtype=I32, device=dev)
-    adj[slot] = torch.where(valid, g.cols, N)
-    adw = torch.zeros(N * deg + 1, dtype=g.ewgt.dtype, device=dev)
-    adw[slot] = torch.where(valid, g.ewgt, 0.0)
-    overflow = (g.indptr[1:] - g.indptr[:-1]) > deg
-    return adj[:-1].view(N, deg), adw[:-1].view(N, deg), overflow
+    slot = torch.where(valid, lane_offsets(B, N * deg, dev) + r.long() * deg + pos,
+                       B * N * deg)
+    adj = torch.full((B * N * deg + 1,), N, dtype=I32, device=dev)
+    adj[slot] = torch.where(valid, gb.cols, N)
+    adw = torch.zeros(B * N * deg + 1, dtype=gb.ewgt.dtype, device=dev)
+    adw[slot] = torch.where(valid, gb.ewgt, 0.0)
+    overflow = (gb.indptr[:, 1:] - gb.indptr[:, :-1]) > deg
+    adj, adw = adj[:-1].view(B, N, deg), adw[:-1].view(B, N, deg)
+    if single:
+        return adj[0], adw[0], overflow[0]
+    return adj, adw, overflow

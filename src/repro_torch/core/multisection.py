@@ -65,7 +65,7 @@ from .graph import (F32, I32, Graph, assemble_padded, default_ell_deg, exact_sum
                     take_lanes)
 from .hierarchy import Hierarchy, adaptive_epsilon, adaptive_epsilon_tensor
 from .coarsen import coarsen_cascade
-from .partition import batched_partition, num_levels, partition
+from .partition import batched_partition, lanes_per_chunk, num_levels, partition
 from .refine import resolve_backend
 
 # ---------------------------------------------------------------------------
@@ -254,11 +254,25 @@ def _root_op(g: Graph, N0: int, M0: int):
     return batch, orig[None], g2.total_weight()
 
 
+def split_lane_bytes(N: int, M: int, arity: int) -> int:
+    """Device bytes :func:`graph.split_blocks` reckons with for one lane at
+    (N, M): its ``arity`` children (six arrays of N or M words) and the
+    gathers' [arity, N] / [arity, M] indices and masks."""
+    return 36 * arity * (N + M)
+
+
 def _split_op(gb: Graph, parts: torch.Tensor, ob: torch.Tensor, arity: int,
               sent: torch.Tensor):
-    """[B]-lane batch -> [B*arity]-lane children (+ orig ids + weights)."""
-    out = [split_blocks(Graph(*(a[i] for a in gb)), parts[i], ob[i], arity, sent)
-           for i in range(ob.shape[0])]
+    """[B]-lane batch -> [B*arity]-lane children (+ orig ids + weights):
+    one batched :func:`graph.split_blocks` for all lanes, in consecutive
+    chunks that fit ``partition.LANE_CHUNK_BYTES`` (each lane splits as it
+    would alone, so the chunking changes nothing)."""
+    B = ob.shape[0]
+    per = lanes_per_chunk(split_lane_bytes(gb.N, gb.M, arity))
+    if per >= B:
+        return split_blocks(gb, parts, ob, arity, sent)
+    out = [split_blocks(Graph(*(a[i:i + per] for a in gb)), parts[i:i + per],
+                        ob[i:i + per], arity, sent) for i in range(0, B, per)]
     ch = Graph(*(torch.cat(f) for f in zip(*(c for c, _, _ in out))))
     return ch, torch.cat([o for _, o, _ in out]), torch.cat([w for _, _, w in out])
 
@@ -389,13 +403,16 @@ def dispatch_group_batch(groups: list[PlanGroup], device,
     kernels run on the device's stream, so the call returns while the
     device works on.
 
+    The merged lanes of every group go into ONE :func:`batched_partition`
+    call, which runs them as one batched v-cycle (in chunks of
+    ``partition.LANE_CHUNK_BYTES``), as the reference's ``vmap`` does.
+
     ``pad_batch_pow2`` is the reference's keyword, and here it changes
     nothing. The reference replicates the last lane up to a power of two so
-    that XLA compiles O(log B) batch widths; the port compiles nothing, and
-    :func:`batched_partition` runs its lanes one after another, so a
-    replicated lane would cost a whole lane's work for an output that is
-    dropped. Lanes are independent, so the results are the same either way;
-    the mapping service still counts the lanes the reference would pad
+    that XLA compiles O(log B) batch widths; the port compiles nothing, so
+    a replicated lane would cost device work for an output that is dropped.
+    Lanes are independent, so the results are the same either way; the
+    mapping service still counts the lanes the reference would pad
     (``stats()["coalesce"]["padded_lanes"]``)."""
     key = groups[0].exec_key
     for gr in groups[1:]:

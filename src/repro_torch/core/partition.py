@@ -8,11 +8,16 @@ run and the best balanced partition wins.
 Every level keeps the input's padded shapes (N, M), as the reference's
 fused v-cycle does, so the two compare array for array. PyTorch runs
 eagerly: the reference's two ``lax.scan``s over levels are Python loops
-that keep each level's fine graph, and its ``vmap`` over the lanes of a
-batch is a Python loop too (lanes are independent, so the results are the
-same). The restarts of one call run as a leading batch
-dimension through the initial partition and the refinement; the
-coarsening does not depend on the restart, so they share it.
+that keep each level's fine graph. Its ``vmap`` over the lanes of a batch
+(:func:`batched_partition`) is a leading lane axis: one v-cycle runs every
+lane of a dispatch, one coarsening per level, one initial partition, one
+refinement and rebalance round for all lanes, each device operation and
+kernel launch covering every lane (lanes are independent and ids stay
+lane-local, so each lane's result is what it would be alone).
+:func:`partition` is the case of one lane. The restarts of each lane run
+as a second batch axis through the initial partition and the refinement
+(B * R rows); the coarsening does not depend on the restart, so they share
+it.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import math
 import torch
 
 from .coarsen import _i32, coarsen_once
-from .graph import (F32, I32, Graph, default_ell_deg, edge_mask, exact_sums,
+from .graph import (F32, I32, Graph, as_lanes, default_ell_deg, edge_mask, exact_sums,
                     resolve_device, xla_sum)
 from .initial import initial_partition
 from .refine import batched_block_weights, lp_refine, rebalance, resolve_backend
@@ -79,11 +84,13 @@ def _lmax(g: Graph, k: int, eps: torch.Tensor) -> torch.Tensor:
 
 def _coarsen_levels(g: Graph, levels: int, ell_deg: int | None, coarsen: str = "ell"):
     """The v-cycle's downward half: ``(fines, maps, coarsest)``, every level
-    at the shapes (N, M). Its salts depend on the level alone, never on the
-    restart, so the restarts of one call share it (the reference recomputes
-    it in each ``vmap`` lane, with the same result). ``coarsen="ell"`` runs
-    the coarsening kernels, with the refinement's ELL cap where the caller
-    pinned one; ``"segment"`` the exact segment path, with no cap."""
+    at the shapes (N, M), of one graph or of every lane of a batch at once.
+    Its salts depend on the level alone, never on the lane or the restart,
+    so the lanes draw the same salts and the restarts of a lane share it
+    (the reference recomputes it in each ``vmap`` lane, with the same
+    result). ``coarsen="ell"`` runs the coarsening kernels, with the
+    refinement's ELL cap where the caller pinned one; ``"segment"`` the
+    exact segment path, with no cap."""
     if coarsen not in ("ell", "segment"):
         raise ValueError(f"coarsen must be 'ell' or 'segment', got {coarsen!r}")
     deg_c = None if coarsen == "segment" else (
@@ -98,58 +105,67 @@ def _coarsen_levels(g: Graph, levels: int, ell_deg: int | None, coarsen: str = "
 
 
 def _partition_restarts(g: Graph, k: int, eps: torch.Tensor, preset: Preset,
-                        salts: list[int], backend: str, ell_deg: int | None,
+                        salts: list[list[int]], backend: str, ell_deg: int | None,
                         fines: list, maps: list, coarsest: Graph) -> torch.Tensor:
-    """The seeded restarts of one call as a leading batch dimension: [R, N]
-    labellings over the coarsening of :func:`_coarsen_levels` (with no
-    levels, the initial partition of ``g`` itself)."""
+    """The seeded restarts of every lane of the batch ``g`` [B, ...]:
+    [B, R, N] labellings over the coarsening of :func:`_coarsen_levels`
+    (with no levels, the initial partition of ``g`` itself); ``salts`` holds
+    the R restart salts of each lane, ``eps`` [B] its imbalance."""
     Lmax = _lmax(g, k, eps)
+
+    def shifted(d):   # every restart salt plus d, wrapped as the reference's i32
+        return [[_i32(s + d) for s in row] for row in salts]
     part = initial_partition(coarsest, k, Lmax, salt=salts,
                              polish_rounds=preset.coarsest_polish, backend=backend,
                              ell_deg=ell_deg)
+    B, R, N = part.shape
     for lvl in range(len(fines) - 1, -1, -1):
         gf = fines[lvl]
-        part = part[:, maps[lvl]]   # project to the finer level
+        part = part.gather(2, maps[lvl].long()[:, None, :].expand(B, R, N))   # project
         part = lp_refine(gf, part, k, Lmax, rounds=preset.refine_rounds,
-                         salt=[_i32(s + 1000 + lvl) for s in salts], backend=backend,
-                         ell_deg=ell_deg)
-        part = rebalance(gf, part, k, Lmax, rounds=4,
-                         salt=[_i32(s + 2000 + lvl) for s in salts], backend=backend,
-                         ell_deg=ell_deg)
+                         salt=shifted(1000 + lvl), backend=backend, ell_deg=ell_deg)
+        part = rebalance(gf, part, k, Lmax, rounds=4, backend=backend, ell_deg=ell_deg)
     for cyc in range(preset.vcycles):
         part = lp_refine(g, part, k, Lmax, rounds=preset.refine_rounds,
-                         salt=[_i32(s + 3000 + cyc) for s in salts], backend=backend,
-                         ell_deg=ell_deg)
-        part = rebalance(g, part, k, Lmax, rounds=4,
-                         salt=[_i32(s + 4000 + cyc) for s in salts], backend=backend,
-                         ell_deg=ell_deg)
+                         salt=shifted(3000 + cyc), backend=backend, ell_deg=ell_deg)
+        part = rebalance(g, part, k, Lmax, rounds=4, backend=backend, ell_deg=ell_deg)
     return part
 
 
-def _partition_on(g: Graph, k: int, eps: torch.Tensor, levels: int,
-                  preset_name: str, salt: int, backend: str,
-                  ell_deg: int | None, coarsen: str = "ell") -> torch.Tensor:
+def _partition_lanes(g: Graph, k: int, eps: torch.Tensor, levels: int,
+                     preset_name: str, salts: list[int], backend: str,
+                     ell_deg: int | None, coarsen: str = "ell") -> torch.Tensor:
+    """One v-cycle for every lane of the batch ``g`` [B, ...]: [B, N] i32,
+    lane b with imbalance ``eps[b]`` and salt ``salts[b]``. The winner of
+    each lane's restarts is picked per lane."""
     preset = Preset.get(preset_name)
+    B, N = g.vwgt.shape
     if k == 1:
-        return torch.zeros(g.N, dtype=I32, device=g.device)
+        return torch.zeros(B, N, dtype=I32, device=g.device)
     with exact_sums(g):   # the card's fast sums where every order is exact
         fines, maps, coarsest = _coarsen_levels(g, levels, ell_deg, coarsen)
-        salts = [_i32(_i32(salt) * 131 + r * 7919) for r in range(preset.restarts)]
-        parts = _partition_restarts(g, k, eps, preset, salts, backend, ell_deg,
+        rsalts = [[_i32(_i32(s) * 131 + r * 7919) for r in range(preset.restarts)]
+                  for s in salts]
+        parts = _partition_restarts(g, k, eps, preset, rsalts, backend, ell_deg,
                                     fines, maps, coarsest)
-        cut = xla_sum(torch.where((parts[:, g.rows] != parts[:, g.cols]) & edge_mask(g),
-                                  g.ewgt, 0.0)) / 2.0
-        excess = batched_block_weights(g, parts, k) - _lmax(g, k, eps)
+        R = parts.shape[1]
+        rows = g.rows.long()[:, None, :].expand(B, R, g.M)
+        cols = g.cols.long()[:, None, :].expand(B, R, g.M)
+        cut_edge = (parts.gather(2, rows) != parts.gather(2, cols)) & edge_mask(g)[:, None]
+        cut = xla_sum(torch.where(cut_edge, g.ewgt[:, None], 0.0)) / 2.0        # [B, R]
+        excess = batched_block_weights(g, parts, k) - _lmax(g, k, eps)[:, None, None]
     over = xla_sum(excess.clamp(min=0.0))   # fractions: XLA's order on either device
     # XLA fuses cut + 1e6 * over into one FMA: round once, as it does
     scores = fma_f32(over, torch.tensor(1e6, dtype=F32, device=g.device), cut)
-    return parts[torch.argmin(scores)]
+    win = torch.argmin(scores, dim=1)
+    return parts[torch.arange(B, device=g.device), win]
 
 
 def partition(g: Graph, k: int, eps, levels: int, preset_name: str = "eco",
               salt: int = 0, backend: str = "auto", ell_deg: int | None = None,
               coarsen: str = "ell", device=None) -> torch.Tensor:
-    """Balanced k-way partition of ``g`` minimizing edge-cut.
+    """Balanced k-way partition of ``g`` minimizing edge-cut: the one-lane
+    case of :func:`batched_partition`.
 
     The restarts run as a batch; the winner is the best *balanced*
     partition by edge-cut (unbalanced runs are heavily penalized).
@@ -162,26 +178,62 @@ def partition(g: Graph, k: int, eps, levels: int, preset_name: str = "eco",
     card) first.
     """
     dev = resolve_device(device)
-    g = g.to(dev)
+    gb, _ = as_lanes(g.to(dev))
     backend = resolve_backend(backend, dev)
-    eps_t = torch.as_tensor(eps, dtype=F32, device=dev)
-    return _partition_on(g, k, eps_t, levels, preset_name, int(salt), backend, ell_deg,
-                         coarsen)
+    eps_t = torch.as_tensor(eps, dtype=F32, device=dev).reshape(1)
+    return _partition_lanes(gb, k, eps_t, levels, preset_name, [int(salt)], backend,
+                            ell_deg, coarsen)[0]
+
+
+# Bytes one chunk of lanes of batched_partition may reckon with (see
+# lane_bytes). A fixed constant, never the card's free memory, so a
+# dispatch is cut into the same chunks on every run; lanes are independent,
+# so the chunking never changes a result.
+LANE_CHUNK_BYTES = 16 << 30
+
+
+def lane_bytes(N: int, M: int, k: int, levels: int, restarts: int, deg: int) -> int:
+    """Device bytes one lane of a partition call at the padded shapes (N, M)
+    holds at its peak, reckoned: every level's fine graph and map (the
+    v-cycle keeps them all), the ELL rows, jitters and contraction
+    candidates of a level, and the refinement's [R, N, k] and [R, M, k]
+    temporaries (the segmented connectivity sum). For rgg 2^20 on 4:8:6 it
+    gives 6.9 GB at the root call (N 2^20, M 2^24, k 6, 19 levels, R 2, DEG
+    24) and 4.7 GB for the 48 lanes of the last level (N 2^15, M 2^18, k 4,
+    13 levels); on an H100 the two calls peaked at 7.0 GB and 4.9 GB."""
+    graph = 4 * (3 * N + 3 * M)
+    ell = 32 * N * deg
+    rows = restarts * (26 * N * k + 6 * M * k + 8 * M)
+    return (levels + 1) * graph + ell + rows
+
+
+def lanes_per_chunk(per_lane: int) -> int:
+    """How many lanes of ``per_lane`` reckoned bytes one chunk takes: as
+    many as ``LANE_CHUNK_BYTES`` holds, at least one."""
+    return max(1, LANE_CHUNK_BYTES // per_lane)
 
 
 def batched_partition(gs: Graph, k: int, eps: torch.Tensor, salts: list[int],
                       levels: int, preset: str, backend: str,
-                      ell_deg: int | None = None) -> torch.Tensor:
-    """Partition every lane of a stacked ``[B, ...]`` Graph: ``[B, N]`` i32.
+                      ell_deg: int | None = None, coarsen: str = "ell") -> torch.Tensor:
+    """Partition every lane of a stacked ``[B, ...]`` Graph: ``[B, N]`` i32,
+    lane b with imbalance ``eps[b]`` and salt ``salts[b]``.
 
-    The dispatch unit of the planner strategies; the lanes run one after
-    another (the reference vmaps them), each with its own eps and salt.
+    The dispatch unit of the planner strategies, the reference's ``vmap``
+    of :func:`partition` over the lanes: one v-cycle runs all lanes of a
+    chunk together (:func:`_partition_lanes`). The lanes are cut into
+    consecutive chunks whose :func:`lane_bytes` fit ``LANE_CHUNK_BYTES``;
+    each lane's result is the same in any chunking and equals its own
+    :func:`partition` call.
     """
     backend = resolve_backend(backend, gs.device)
-    out = [_partition_on(Graph(*(a[i] for a in gs)), k, eps[i], levels, preset,
-                         salts[i], backend, ell_deg)
-           for i in range(len(salts))]
-    return torch.stack(out)
+    B = len(salts)
+    deg = ell_deg if ell_deg is not None else default_ell_deg(gs.N, gs.M)
+    per = lanes_per_chunk(lane_bytes(gs.N, gs.M, k, levels, Preset.get(preset).restarts, deg))
+    out = [_partition_lanes(Graph(*(a[i:i + per] for a in gs)), k, eps[i:i + per], levels,
+                            preset, salts[i:i + per], backend, ell_deg, coarsen)
+           for i in range(0, B, per)]
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def partition_host(g: Graph, k: int, eps: float, preset: str = "eco", salt: int = 0,

@@ -4,7 +4,10 @@ Per round, every vertex computes its connectivity to all k blocks in one
 sparse pass, proposes the best positive-gain move that respects capacity,
 and an admission filter caps inflow per target block at its remaining
 capacity. A hash-colouring alternation damps oscillation. ``rebalance``
-repairs over-capacity blocks at minimal edge-cut loss.
+repairs over-capacity blocks at minimal edge-cut loss. Each routine takes
+one graph, or the lanes of a batch (a ``[B, ...]`` Graph, ``[B, R, N]``
+labellings, a capacity per lane); a lane's R restarts and the B lanes run
+together as B * R rows, each row with its lane's graph and capacity.
 
 Backends, as in the reference, selected per call with ``backend=``:
 
@@ -32,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from .graph import (F32, I32, Graph, block_weights, default_ell_deg,
+from .graph import (F32, I32, Graph, as_lanes, block_weights, default_ell_deg,
                     ell_adjacency, label_sums, row_cumsum, row_label_sums, vertex_mask)
 from ..kernels import ops as kops
 
@@ -47,27 +50,54 @@ def _u32(x: int) -> int:
 
 
 def _vhash(n: int, salt: int, device) -> torch.Tensor:
-    """The reference's uint32 vertex hash, computed in i64 masked to 32 bits
-    (torch on the CPU has no uint32 shift). Values in [0, 2^32) as i64."""
-    s = _u32(_u32(salt) * 0x9E3779B9)
-    x = torch.arange(n, dtype=torch.int64, device=device)
-    x = ((x * 2654435761) & _MASK32) ^ s
+    """[n]: the vertex hashes under one salt (:func:`_vhashes`)."""
+    return _vhashes(n, [salt], device)[0]
+
+
+def _vhash0(salt: int) -> int:
+    """:func:`_vhash` of vertex 0, as a Python int (no device op)."""
+    x = _u32(_u32(salt) * 0x9E3779B9)
     x = ((x ^ (x >> 15)) * 0x2C1B3C6D) & _MASK32
     return x ^ (x >> 12)
 
 
 def _vhashes(n: int, salts: list[int], device) -> torch.Tensor:
-    """[R, n]: one :func:`_vhash` row per restart salt."""
-    return torch.stack([_vhash(n, s, device) for s in salts])
+    """[R, n]: the reference's uint32 vertex hash of vertices 0 .. n-1 under
+    each of R salts, all rows at once, computed in i64 masked to 32 bits
+    (torch on the CPU has no uint32 shift). Values in [0, 2^32) as i64."""
+    s = torch.tensor([_u32(_u32(x) * 0x9E3779B9) for x in salts], dtype=torch.int64,
+                     device=device)
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    x = ((x * 2654435761) & _MASK32)[None, :] ^ s[:, None]
+    x = ((x ^ (x >> 15)) * 0x2C1B3C6D) & _MASK32
+    return x ^ (x >> 12)
 
 
-def _batched(part: torch.Tensor, salt) -> tuple[torch.Tensor, list[int]]:
-    """``part`` as [R, N] and ``salt`` as R salts: the restarts of one
-    partition call run as a leading batch dimension (the reference's
-    ``vmap``); a single [N] labelling is the case R = 1."""
-    if part.dim() == 1:
-        return part[None], [int(salt)]
-    return part, [int(x) for x in salt]
+def _rows_of(x: torch.Tensor, R: int) -> torch.Tensor:
+    """[B, ...] per-lane values as [B * R, ...] per-row values: each lane's
+    repeated for its R restarts (row b * R + r)."""
+    return x.repeat_interleave(R, dim=0)
+
+
+def _as_rows(g: Graph, part: torch.Tensor, salt, Lmax):
+    """A refinement's labellings as lanes and restarts: ``(gb [B, ...],
+    parts [B, R, N], salts [B * R], Lmax [B])``. One graph takes ``part``
+    [N] with one int ``salt``, or [R, N] with R salts (the restarts of a
+    partition call, the reference's ``vmap``); the lanes of a batch take
+    ``part`` [B, R, N], ``salt`` as B lists of R and ``Lmax`` [B]. A
+    ``salt`` of None gives no salts."""
+    gb, single = as_lanes(g)
+    parts = part if not single else part[None, None] if part.dim() == 1 else part[None]
+    if salt is None:
+        salts = None
+    elif not single:
+        salts = [int(x) for row in salt for x in row]
+    elif part.dim() == 1:
+        salts = [int(salt)]
+    else:
+        salts = [int(x) for x in salt]
+    Lmax = torch.as_tensor(Lmax, dtype=F32, device=gb.device).reshape(-1)
+    return gb, parts, salts, Lmax
 
 
 def resolve_backend(backend: str, device) -> str:
@@ -83,32 +113,53 @@ def resolve_backend(backend: str, device) -> str:
 def connectivity(g: Graph, part: torch.Tensor, k: int) -> torch.Tensor:
     """conn[r, u, b] = summed weight of edges from u into block b under the
     labelling ``part[r]``, added in edge order.  [R, N, k] for ``part``
-    [R, N]. Padding edges lie past the last CSR row and add nothing."""
-    return row_label_sums(g, part[:, g.cols], g.ewgt, k)
+    [R, N]; [B, R, N, k] for the lanes of a batch (``part`` [B, R, N]).
+    Padding edges lie past the last CSR row and add nothing."""
+    gb, single = as_lanes(g)
+    parts = part[None] if single else part
+    B, R = parts.shape[:2]
+    labels = parts.gather(2, gb.cols.long()[:, None, :].expand(B, R, gb.M))
+    conn = row_label_sums(gb, labels, gb.ewgt, k)
+    return conn[0] if single else conn
 
 
-def _make_conn_of(g: Graph, k: int, backend: str, ell_deg: int | None):
-    """Per-round connectivity for the resolved backend: ``(conn_of,
-    overflow)``, with ``conn_of(parts [R, N]) -> [R, N, k]``.
+def _make_conn_of(gb: Graph, R: int, k: int, backend: str, ell_deg: int | None):
+    """Per-round connectivity of the lanes of ``gb`` for the resolved
+    backend: ``(conn_of, overflow [B, N])``, with ``conn_of(parts [B * R,
+    N]) -> [B * R, N, k]``, every lane in one pass.
 
-    ``"ell"`` builds the padded [N, DEG] adjacency once per call and reads
+    ``"ell"`` builds the padded [B, N, DEG] adjacency once per call and reads
     only ``conn`` from ``kernels.ops.lp_gain`` (best and gain are recomputed
     under the caller's capacity mask). Rows flagged in ``overflow`` carry
     truncated connectivity; the caller chooses the policy. ``ell_deg`` is
     the degree cap (``default_ell_deg(N, M)`` of the padded shapes when
     None).
     """
+    B, N = gb.vwgt.shape
     if backend != "ell":
-        return (lambda parts: connectivity(g, parts, k)), torch.zeros(
-            g.N, dtype=torch.bool, device=g.device)
-    deg = ell_deg if ell_deg is not None else default_ell_deg(g.N, g.M)
-    adj, adw, overflow = ell_adjacency(g, deg)
-    return (lambda parts: kops.lp_gain(adj, adw, parts, k)[0]), overflow
+        return (lambda parts: connectivity(gb, parts.view(B, R, N), k).view(B * R, N, k)), \
+            torch.zeros(B, N, dtype=torch.bool, device=gb.device)
+    deg = ell_deg if ell_deg is not None else default_ell_deg(gb.N, gb.M)
+    adj, adw, overflow = ell_adjacency(gb, deg)
+    return (lambda parts: kops.lp_gain(adj, adw, parts.view(B, R, N), k)[0]
+            .view(B * R, N, k)), overflow
+
+
+def _block_weights_rows(parts, vmask, vw, k: int) -> torch.Tensor:
+    """[T, k] block weights of the labellings ``parts`` [T, N], each row
+    with its lane's vertex mask and weights (``vmask``, ``vw`` [T, N])."""
+    return label_sums(torch.where(vmask, parts, 0), vw, k)
 
 
 def batched_block_weights(g: Graph, part: torch.Tensor, k: int) -> torch.Tensor:
-    """[R, k] :func:`block_weights` of each labelling ``part`` [R, N]."""
-    return label_sums(torch.where(vertex_mask(g), part, 0), g.vwgt, k)
+    """[R, k] :func:`block_weights` of each labelling ``part`` [R, N];
+    [B, R, k] for the lanes of a batch (``part`` [B, R, N])."""
+    gb, single = as_lanes(g)
+    parts = part[None] if single else part
+    B, R, N = parts.shape
+    W = _block_weights_rows(parts.reshape(B * R, N), _rows_of(vertex_mask(gb), R),
+                            _rows_of(gb.vwgt, R), k).view(B, R, k)
+    return W[0] if single else W
 
 
 def _pick(mat: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
@@ -133,12 +184,12 @@ def _block_prefix(idx: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
 
 def _admit_by_argsort(cand, best, gbest, vw, cap, k: int) -> torch.Tensor:
     """The global gain-ranked capacity prefix (xla backend), per row of the
-    [R, N] inputs; ``cap`` is [R, k]."""
+    [R, N] inputs; ``cap`` is [R, k], ``vw`` [N] or per row [R, N]."""
     inf = torch.full_like(gbest, float("inf"))
     order = torch.argsort(torch.where(cand, -gbest, inf), dim=-1, stable=True)
     tgt_s = best.gather(1, order)
     cand_s = cand.gather(1, order)
-    w_s = torch.where(cand_s, vw[order], 0.0)
+    w_s = torch.where(cand_s, vw.expand(order.shape).gather(1, order), 0.0)
     ok_s = cand_s & (_block_prefix(tgt_s, w_s, k) <= _lookup(cap.clamp(min=0.0), tgt_s))
     return torch.zeros_like(cand).scatter_(1, order, ok_s)
 
@@ -146,7 +197,9 @@ def _admit_by_argsort(cand, best, gbest, vw, cap, k: int) -> torch.Tensor:
 def _admit_by_threshold(cand, best, gbest, vw, cap, k: int, tiebreak,
                         iters: int = _THRESHOLD_ITERS) -> torch.Tensor:
     """Per-block gain-threshold admission (the ell backend), per row of the
-    [R, N] inputs; ``cap`` is [R, k], ``tiebreak`` [R, N] in [0, 1).
+    [R, N] inputs; ``cap`` is [R, k], ``tiebreak`` [R, N] in [0, 1), ``vw``
+    [N] or per row [R, N]. Each bisection step is one label sum over every
+    row (of every lane of a batch).
 
     For each target block b, bisect the smallest threshold t_b such that
     the weight of candidates with ``gbest >= t_b`` targeting b fits in
@@ -187,36 +240,42 @@ def lp_refine(g: Graph, part: torch.Tensor, k: int, Lmax: torch.Tensor,
               rounds: int = 4, salt=0, backend: str = "auto",
               ell_deg: int | None = None) -> torch.Tensor:
     """Gain-positive, capacity-respecting label propagation refinement.
-    ``part`` is one [N] labelling, or [R, N] with one salt per row.
+    ``part`` is one [N] labelling, or [R, N] with one salt per row; for the
+    lanes of a batch ``g`` [B, ...], ``part`` [B, R, N], ``salt`` B lists of
+    R and ``Lmax`` [B]. Every round runs once for all rows.
 
     Under ``"ell"``, rows of degree above the cap are frozen: a truncated
     gain estimate could otherwise admit a move that worsens the cut (their
     neighbours still see them through their own rows)."""
     backend = resolve_backend(backend, g.device)
-    parts, salts = _batched(part, salt)
-    vmask = vertex_mask(g)
-    h = _vhashes(g.N, salts, g.device)
-    conn_of, overflow = _make_conn_of(g, k, backend, ell_deg)
-    movable = vmask & ~overflow
+    gb, parts, salts, Lmax = _as_rows(g, part, salt, Lmax)
+    B, R, N = parts.shape
+    vmask = _rows_of(vertex_mask(gb), R)   # [T, N], T = B * R rows
+    vw = _rows_of(gb.vwgt, R)
+    Lr = _rows_of(Lmax, R)[:, None]
+    h = _vhashes(N, salts, gb.device)
+    conn_of, overflow = _make_conn_of(gb, R, k, backend, ell_deg)
+    movable = vmask & ~_rows_of(overflow, R)
     if backend == "ell":
         tiebreak = (h & 0xFFFF).to(F32) / float(1 << 16)
+    parts = parts.reshape(B * R, N)
     for r in range(rounds):
         conn = conn_of(parts)
-        W = batched_block_weights(g, parts, k)
+        W = _block_weights_rows(parts, vmask, vw, k)
         gain = conn - _pick(conn, parts)[..., None]
         own = torch.nn.functional.one_hot(parts.long(), k).bool()
-        fits = (W[:, None, :] + g.vwgt[None, :, None]) <= Lmax
+        fits = (W[:, None, :] + vw[:, :, None]) <= Lr[:, :, None]
         cand_gain = torch.where(fits & ~own, gain, _NEG)
         best = torch.argmax(cand_gain, dim=-1).to(I32)
         gbest = cand_gain.max(dim=-1).values
         color = ((h + r) & 1) == 0
         cand = movable & (gbest > 0.0) & color
         if backend == "ell":
-            accept = _admit_by_threshold(cand, best, gbest, g.vwgt, Lmax - W, k, tiebreak)
+            accept = _admit_by_threshold(cand, best, gbest, vw, Lr - W, k, tiebreak)
         else:
-            accept = _admit_by_argsort(cand, best, gbest, g.vwgt, Lmax - W, k)
+            accept = _admit_by_argsort(cand, best, gbest, vw, Lr - W, k)
         parts = torch.where(accept, best, parts)
-    return parts if part.dim() == 2 else parts[0]
+    return parts.view(part.shape)
 
 
 def rebalance(g: Graph, part: torch.Tensor, k: int, Lmax: torch.Tensor,
@@ -224,37 +283,42 @@ def rebalance(g: Graph, part: torch.Tensor, k: int, Lmax: torch.Tensor,
               ell_deg: int | None = None) -> torch.Tensor:
     """Force epsilon-balance: drain over-capacity blocks via min-loss moves
     (``salt`` is unused, as in the reference). ``part`` is one [N]
-    labelling or [R, N]. Under ``"ell"`` rows over the degree cap stay
-    movable on truncated connectivity: feasibility rests on the exact
-    weight bookkeeping, and only their min-loss order is approximate."""
+    labelling or [R, N]; [B, R, N] for the lanes of a batch (``Lmax`` [B]).
+    Under ``"ell"`` rows over the degree cap stay movable on truncated
+    connectivity: feasibility rests on the exact weight bookkeeping, and
+    only their min-loss order is approximate."""
     backend = resolve_backend(backend, g.device)
-    parts = part if part.dim() == 2 else part[None]
-    vmask = vertex_mask(g)
-    conn_of, _ = _make_conn_of(g, k, backend, ell_deg)
+    gb, parts, _, Lmax = _as_rows(g, part, None, Lmax)
+    B, R, N = parts.shape
+    vmask = _rows_of(vertex_mask(gb), R)
+    vw = _rows_of(gb.vwgt, R)
+    Lr = _rows_of(Lmax, R)[:, None]
+    conn_of, _ = _make_conn_of(gb, R, k, backend, ell_deg)
+    parts = parts.reshape(B * R, N)
     for _ in range(rounds):
         conn = conn_of(parts)
-        W = batched_block_weights(g, parts, k)
-        overflow_w = (W - Lmax).clamp(min=0.0)
+        W = _block_weights_rows(parts, vmask, vw, k)
+        overflow_w = (W - Lr).clamp(min=0.0)
         loss = _pick(conn, parts)[..., None] - conn
         own = torch.nn.functional.one_hot(parts.long(), k).bool()
-        fits = (W[:, None, :] + g.vwgt[None, :, None]) <= Lmax
+        fits = (W[:, None, :] + vw[:, :, None]) <= Lr[:, :, None]
         cand_loss = torch.where(fits & ~own, loss, float("inf"))
         tgt = torch.argmin(cand_loss, dim=-1).to(I32)
         lbest = cand_loss.min(dim=-1).values
         src_over = _lookup(overflow_w, parts) > 0.0
-        cand = vmask & src_over & torch.isfinite(lbest) & (g.vwgt > 0.0)
+        cand = vmask & src_over & torch.isfinite(lbest) & (vw > 0.0)
         order = torch.argsort(torch.where(cand, lbest, float("inf")), dim=-1, stable=True)
         src_s = parts.gather(1, order)
         tgt_s = tgt.gather(1, order)
         cand_s = cand.gather(1, order)
-        w_s = torch.where(cand_s, g.vwgt[order], 0.0)
+        w_s = torch.where(cand_s, vw.gather(1, order), 0.0)
         # drain only what is needed (allow the boundary-crossing move), fill
         # targets only up to capacity.
         out_ok = (_block_prefix(src_s, w_s, k) - w_s) < _lookup(overflow_w, src_s)
-        in_ok = _block_prefix(tgt_s, w_s, k) <= _lookup((Lmax - W).clamp(min=0.0), tgt_s)
+        in_ok = _block_prefix(tgt_s, w_s, k) <= _lookup((Lr - W).clamp(min=0.0), tgt_s)
         accept = torch.zeros_like(cand).scatter_(1, order, cand_s & out_ok & in_ok)
         parts = torch.where(accept, tgt, parts)
-    return parts if part.dim() == 2 else parts[0]
+    return parts.view(part.shape)
 
 
 def is_balanced(g: Graph, part: torch.Tensor, k: int, Lmax) -> bool:

@@ -52,14 +52,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (src, idx, out, S, total, stream)
     "gather_rows_u32": [_P, _P, _P, _I, ctypes.c_longlong, _P],
-    # (adj, adw, jit, matched, prop, N, DEG, stream)
-    "hem_propose_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # (adj, adw, jit, matched, prop, N, DEG, B, stream)
+    "hem_propose_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (cand, candw, nbr, w, cnt, N, D2, sent, stream)
     "contract_edges_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (rows, cols, ewgt, pe, g_below, dvec, scratch, arrived, M, N, l, blocks, stream)
     "mapcost_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (adj, adw, part, conn, best, gain, N, DEG, k, R, stream)
-    "lp_gain_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (adj, adw, part, conn, best, gain, N, DEG, k, R, B, stream)
+    "lp_gain_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (q, k, v, o, B, S, H, Hkv, D, scale, causal, window, stream)
     "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P],

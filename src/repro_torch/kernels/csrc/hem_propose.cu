@@ -1,13 +1,18 @@
 // hem_propose: one heavy-edge-matching proposal per row of the padded ELL
-// adjacency [N, DEG] (DEG <= 64). A slot j of row u is valid when its
-// neighbour a = adj[u, j] is real (a < N), not u itself, and both u and a
-// are unmatched. Its score is adw * (1 + jj) + jj with jj = jit * 1e-3;
+// adjacency [B, N, DEG] of the B graphs of a dispatch (its lanes; DEG <= 64;
+// ids are local to the graph, and a row reads only its own graph's flags
+// matched [B, N]; the graph index is left out below). A slot j of row u is
+// valid when its neighbour a = adj[u, j] is real (a < N), not u itself, and
+// both u and a are unmatched. Its score is adw * (1 + jj) + jj with jj = jit * 1e-3;
 // the row proposes the smallest neighbour id among its best-scoring valid
 // slots, or N when it has none.
 //
 // Replaces the TPU kernel src/repro/kernels/coarsen_kernels.py:
 // hem_propose_pallas (body _hem_propose_kernel -> kernels/ref.py:
-// hem_row_scan).
+// hem_row_scan), which the reference's batched partition vmaps over the
+// graphs of a dispatch. Here the graph is the grid's y index: a warp's rows
+// all lie in one graph, every pointer is offset to that graph, and a batch
+// of one is the launch of one graph.
 //
 // Rounding: the reference runs under XLA's jit on the CPU, which fuses the
 // score into ONE fused multiply-add. The kernel writes exactly that:
@@ -55,6 +60,14 @@ hem_propose_kernel(const int* __restrict__ adj, const float* __restrict__ adw,
                    const float* __restrict__ jit, const int* __restrict__ matched,
                    int* __restrict__ prop, int N, int DEG) {
   extern __shared__ __align__(16) int smem[];
+  {   // this block's graph of the batch (the grid's y index)
+    const long long gi = blockIdx.y;
+    adj += gi * N * DEG;
+    adw += gi * N * DEG;
+    jit += gi * N * DEG;
+    matched += gi * N;
+    prop += gi * N;
+  }
   const int P = rows::pitch(DEG);
   const int lane = threadIdx.x & 31;
   int* s_adj = smem + (threadIdx.x >> 5) * warp_words(DEG);   // [32][P], by live rank
@@ -122,9 +135,9 @@ hem_propose_kernel(const int* __restrict__ adj, const float* __restrict__ adw,
 
 extern "C" int hem_propose_f32(const void* adj, const void* adw, const void* jit,
                                const void* matched, void* prop, int N, int DEG,
-                               cudaStream_t stream) {
-  if (N <= 0) return 0;
-  if (DEG < 1 || DEG > kMaxDeg) return (int)cudaErrorInvalidValue;
+                               int B, cudaStream_t stream) {
+  if (N <= 0 || B <= 0) return 0;
+  if (DEG < 1 || DEG > kMaxDeg || B > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)kWarps * warp_words(DEG) * sizeof(int);
   if (smem > 48 * 1024) {   // DEG above 40; the main path's DEG 24 takes 38,912 B
     const cudaError_t err = cudaFuncSetAttribute(
@@ -132,7 +145,7 @@ extern "C" int hem_propose_f32(const void* adj, const void* adw, const void* jit
     if (err != cudaSuccess) return (int)err;
   }
   const long long blocks = ((long long)N + 32 * kWarps - 1) / (32 * kWarps);
-  hem_propose_kernel<<<(unsigned)blocks, 32 * kWarps, smem, stream>>>(
+  hem_propose_kernel<<<dim3((unsigned)blocks, (unsigned)B), 32 * kWarps, smem, stream>>>(
       static_cast<const int*>(adj), static_cast<const float*>(adw),
       static_cast<const float*>(jit), static_cast<const int*>(matched),
       static_cast<int*>(prop), N, DEG);

@@ -1,7 +1,10 @@
 // lp_gain: per-vertex block connectivity for label-propagation refinement,
-// batched over R restarts. For each row u of the padded ELL adjacency
-// adj/adw [N, DEG] (DEG <= 64; neighbour id >= N = padding) and each
-// restart r with labels part [R, N] (2 <= k <= 64 blocks):
+// batched over the B graphs of a dispatch (its lanes) and their R restarts.
+// For each graph, row u of its padded ELL adjacency adj/adw [B, N, DEG]
+// (DEG <= 64; neighbour id >= N = padding; ids are local to the graph, so a
+// row gathers only its own graph's labels) and each restart r with labels
+// part [B, R, N] (2 <= k <= 64 blocks), outputs [B, R, ...] (the graph
+// index is left out below):
 //   conn[r, u, b] = sum of adw[u, j] over the slots j whose neighbour is in
 //                   block b, added in slot order j = 0 .. DEG-1;
 //   best[r, u]    = first block of largest conn other than part[r, u];
@@ -9,7 +12,10 @@
 // Padding slots are skipped, as the TPU kernel's body skips them.
 //
 // Replaces the TPU kernel src/repro/kernels/lp_gain.py: lp_gain_pallas
-// (body _lp_gain_kernel).
+// (body _lp_gain_kernel), which the reference's batched partition vmaps
+// over the graphs of a dispatch (an axis of its grid). Here the graph is
+// the grid's y index: a block's rows all lie in one graph, every pointer is
+// offset to that graph, and a batch of one is the launch of one graph.
 //
 // Rounding: every sum starts at +0.0f and is a chain of __fadd_rn over the
 // row's live slots in slot order, so the result does not depend on
@@ -79,6 +85,15 @@ lp_gain_kernel(const int* __restrict__ adj, const float* __restrict__ adw,
                float* __restrict__ gain, int N, int DEG, int k, int R) {
   extern __shared__ __align__(16) int smem[];
   constexpr int nw = kRowsPerWarp;
+  {   // this block's graph of the batch (the grid's y index)
+    const long long gi = blockIdx.y;
+    adj += gi * N * DEG;
+    adw += gi * N * DEG;
+    part += gi * R * N;
+    conn += gi * R * N * k;
+    best += gi * R * N;
+    gain += gi * R * N;
+  }
   const int P = rows::pitch(DEG);
   const int lane = threadIdx.x & 31;
   int* s_adj = smem + (threadIdx.x >> 5) * (2 * nw * P + k * 32);  // [nw][P]
@@ -181,7 +196,7 @@ lp_gain_kernel(const int* __restrict__ adj, const float* __restrict__ adw,
 
 template <int KR>
 int launch(const int* adj, const float* adw, const int* part, float* conn, int* best, float* gain, int N, int DEG, int k, int R,
-           cudaStream_t stream) {
+           int B, cudaStream_t stream) {
   const size_t smem = (size_t)kWarps * (2 * kRowsPerWarp * rows::pitch(DEG) + k * 32) *
                       sizeof(float);
   if (smem > 48 * 1024) {  // e.g. DEG 32 with k 64; the main path needs 17 KB
@@ -190,7 +205,7 @@ int launch(const int* adj, const float* adw, const int* part, float* conn, int* 
     if (err != cudaSuccess) return (int)err;
   }
   const long long blocks = ((long long)N + kWarps * kRowsPerWarp - 1) / (kWarps * kRowsPerWarp);
-  lp_gain_kernel<KR><<<(unsigned)blocks, 32 * kWarps, smem, stream>>>(
+  lp_gain_kernel<KR><<<dim3((unsigned)blocks, (unsigned)B), 32 * kWarps, smem, stream>>>(
       adj, adw, part, conn, best, gain, N, DEG, k, R);
   return (int)cudaGetLastError();
 }
@@ -199,9 +214,9 @@ int launch(const int* adj, const float* adw, const int* part, float* conn, int* 
 
 extern "C" int lp_gain_f32(const void* adj, const void* adw, const void* part,
                            void* conn, void* best, void* gain,
-                           int N, int DEG, int k, int R, cudaStream_t stream) {
-  if (N <= 0 || R <= 0) return 0;
-  if (DEG < 1 || DEG > kMaxDeg || k < 2 || k > kMaxK)
+                           int N, int DEG, int k, int R, int B, cudaStream_t stream) {
+  if (N <= 0 || R <= 0 || B <= 0) return 0;
+  if (DEG < 1 || DEG > kMaxDeg || k < 2 || k > kMaxK || B > 65535)
     return (int)cudaErrorInvalidValue;
   const int* a = static_cast<const int*>(adj);
   const float* w = static_cast<const float*>(adw);
@@ -209,7 +224,7 @@ extern "C" int lp_gain_f32(const void* adj, const void* adw, const void* part,
   float* c = static_cast<float*>(conn);
   int* b = static_cast<int*>(best);
   float* g = static_cast<float*>(gain);
-  if (k <= 4) return launch<4>(a, w, p, c, b, g, N, DEG, k, R, stream);
-  if (k <= 8) return launch<8>(a, w, p, c, b, g, N, DEG, k, R, stream);
-  return launch<0>(a, w, p, c, b, g, N, DEG, k, R, stream);
+  if (k <= 4) return launch<4>(a, w, p, c, b, g, N, DEG, k, R, B, stream);
+  if (k <= 8) return launch<8>(a, w, p, c, b, g, N, DEG, k, R, B, stream);
+  return launch<0>(a, w, p, c, b, g, N, DEG, k, R, B, stream);
 }

@@ -41,22 +41,26 @@ def gather_rows(src, idx) -> torch.Tensor:
 
 
 def hem_propose(adj, adw, jit, matched) -> torch.Tensor:
-    """Per-row HEM proposal scan over the [N, DEG] ELL adjacency."""
+    """Per-row HEM proposal scan over the [N, DEG] ELL adjacency, or over
+    every lane of a batch ([B, N, DEG], ``matched`` [B, N]) at once."""
     if _on_cuda(adj):
         return hem_propose_cuda(adj, adw, jit, matched)
     return ref.hem_propose_ref(adj, adw, jit, matched)
 
 
 def contract_edges(cand, candw):
-    """Row-local merge/dedup/accumulate for contraction (sentinel = N)."""
+    """Row-local merge/dedup/accumulate for contraction (sentinel = N),
+    over ``cand`` [N, D2] or every lane of a batch, [B, N, D2]."""
+    sent = cand.shape[-2]
     if _on_cuda(cand):
-        return contract_edges_cuda(cand, candw, cand.shape[0])
-    return ref.contract_edges_ref(cand, candw, cand.shape[0])
+        return contract_edges_cuda(cand, candw, sent)
+    return ref.contract_edges_ref(cand, candw, sent)
 
 
 def lp_gain(adj, adw, part, k: int):
     """Per-vertex (conn, best, gain) over the [N, DEG] ELL adjacency, for
-    labels ``part`` [N] or [R, N] (the restarts of a partition call)."""
+    labels ``part`` [N] or [R, N] (the restarts of a partition call); over
+    every lane of a batch for ``adj`` [B, N, DEG] and ``part`` [B, R, N]."""
     if _on_cuda(adj):
         return lp_gain_cuda(adj, adw, part, k)
     return ref.lp_gain_ref(adj, adw, part, k)

@@ -59,32 +59,37 @@ def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def hem_row_scan(adj, adw, jit, matched, u, n_ids: int) -> torch.Tensor:
     """Per-row heaviest-free-neighbour scan (the HEM proposal step).
 
-    ``adj``/``adw``/``jit`` are ``[T, DEG]`` rows of the padded ELL
-    adjacency (neighbour id ``n_ids`` = padding), ``matched`` a 0/1 i32
-    vector, ``u`` the ``[T]`` row ids. Returns the ``[T]`` i32 proposal per
-    row (``n_ids`` = none). The score ``adw * (1 + jj) + jj`` is rounded
-    once, as the reference's fused form (see :func:`fma_f32`).
+    ``adj``/``adw``/``jit`` are ``[..., T, DEG]`` rows of the padded ELL
+    adjacency (neighbour id ``n_ids`` = padding), ``matched`` a ``[..., Nm]``
+    0/1 i32 vector with the same leading axes (a row gathers only from its
+    own lane's), ``u`` the ``[T]`` row ids. Returns the ``[..., T]`` i32
+    proposal per row (``n_ids`` = none). The score ``adw * (1 + jj) + jj``
+    is rounded once, as the reference's fused form (see :func:`fma_f32`).
     """
-    Nm = matched.shape[0]
-    nbr_matched = matched[adj.clamp(0, Nm - 1)]
-    own_matched = matched[u.clamp(0, Nm - 1)]
+    Nm = matched.shape[-1]
+    lead = adj.shape[:-2]
+    nbr_matched = matched.gather(-1, adj.clamp(0, Nm - 1).long().reshape(*lead, -1))
+    nbr_matched = nbr_matched.view(adj.shape)
+    own_matched = matched[..., u.clamp(0, Nm - 1).long()]
     valid = ((adj < n_ids) & (adj != u[:, None])
-             & (own_matched[:, None] == 0) & (nbr_matched == 0))
+             & (own_matched[..., None] == 0) & (nbr_matched == 0))
     jj = jit * torch.tensor(1e-3, dtype=torch.float32, device=jit.device)
     score = torch.where(valid, fma_f32(adw, 1.0 + jj, jj),
                         torch.full_like(adw, float("-inf")))
-    best = score.max(dim=1).values
+    best = score.max(dim=-1).values
     has = best > float("-inf")
-    cand = torch.where(valid & (score == best[:, None]), adj,
+    cand = torch.where(valid & (score == best[..., None]), adj,
                        torch.full_like(adj, n_ids))
-    prop = cand.min(dim=1).values
+    prop = cand.min(dim=-1).values
     return torch.where(has, prop, torch.full_like(prop, n_ids)).to(torch.int32)
 
 
 def hem_propose_ref(adj, adw, jit, matched) -> torch.Tensor:
-    """Plain version of the hem_propose kernel: the row scan over all rows."""
-    u = torch.arange(adj.shape[0], dtype=torch.int32, device=adj.device)
-    return hem_row_scan(adj, adw, jit, matched, u, adj.shape[0])
+    """Plain version of the hem_propose kernel: the row scan over all rows,
+    of one graph (``adj`` [N, DEG], ``matched`` [N]) or of every lane of a
+    batch (``adj`` [B, N, DEG], ``matched`` [B, N]; ids lane-local)."""
+    u = torch.arange(adj.shape[-2], dtype=torch.int32, device=adj.device)
+    return hem_row_scan(adj, adw, jit, matched, u, adj.shape[-2])
 
 
 def merge_dedup_rows(cand, candw, sent: int):
@@ -114,7 +119,12 @@ def merge_dedup_rows(cand, candw, sent: int):
 
 
 def contract_edges_ref(cand, candw, sent: int):
-    """Plain version of the contract_edges kernel."""
+    """Plain version of the contract_edges kernel; ``cand`` [T, D2], or
+    [B, N, D2] for the lanes of a batch (their rows merged as T = B * N)."""
+    if cand.dim() == 3:
+        nbr, w, cnt = merge_dedup_rows(cand.reshape(-1, cand.shape[-1]),
+                                       candw.reshape(-1, cand.shape[-1]), sent)
+        return nbr.view(cand.shape), w.view(cand.shape), cnt.view(cand.shape[:2])
     return merge_dedup_rows(cand, candw, sent)
 
 
@@ -125,31 +135,38 @@ def lp_gain_ref(adj, adw, part, k: int):
     ``>= N`` = padding), ``part`` the block of each vertex, ``[N]`` or
     ``[R, N]`` (one row per restart). Returns ``(conn [R, N, k], best
     [R, N] i32, gain [R, N])``, without the ``R`` axis for an ``[N]``
-    ``part``. ``conn[r, u, b]`` sums ``adw[u, j]`` over the slots whose
-    neighbour is in block ``b``, in slot order ``j = 0 .. DEG-1`` (the
-    kernel's order); padding slots are skipped, as the TPU kernel's body
-    skips them. ``best`` is the first block of largest connectivity other
-    than the vertex's own, ``gain`` that connectivity minus the own
-    block's.
+    ``part``. The lanes of a batch take ``adj``/``adw`` ``[B, N, DEG]`` and
+    ``part`` ``[B, R, N]`` and give ``[B, R, ...]``; ids stay lane-local, so
+    a row of lane b gathers only lane b's labels. ``conn[r, u, b]`` sums
+    ``adw[u, j]`` over the slots whose neighbour is in block ``b``, in slot
+    order ``j = 0 .. DEG-1`` (the kernel's order); padding slots are
+    skipped, as the TPU kernel's body skips them. ``best`` is the first
+    block of largest connectivity other than the vertex's own, ``gain``
+    that connectivity minus the own block's.
     """
-    parts = part[None] if part.dim() == 1 else part
-    R = parts.shape[0]
-    N, DEG = adj.shape
-    nbr = torch.where(adj < N, parts[:, adj.clamp(0, N - 1)],
-                      torch.full_like(adj, k)).long()          # [R, N, DEG], pad -> k
-    w = adw.expand(R, N, DEG)
-    conn = torch.zeros(R, N, k + 1, dtype=adw.dtype, device=adw.device)
+    lanes = adj.dim() == 3
+    adjb, adwb = (adj, adw) if lanes else (adj[None], adw[None])
+    parts = part if lanes else (part[None] if part.dim() == 1 else part)[None]
+    B, R = parts.shape[:2]
+    N, DEG = adjb.shape[1:]
+    ids = adjb.clamp(0, N - 1).long().reshape(B, 1, N * DEG).expand(B, R, N * DEG)
+    nbr = torch.where(adjb[:, None] < N, parts.gather(2, ids).view(B, R, N, DEG),
+                      torch.full_like(adjb[:, None], k)).long()   # [B, R, N, DEG], pad -> k
+    w = adwb[:, None].expand(B, R, N, DEG)
+    conn = torch.zeros(B, R, N, k + 1, dtype=adw.dtype, device=adw.device)
     for j in range(DEG):
-        conn.scatter_add_(2, nbr[..., j:j + 1], w[..., j:j + 1])
+        conn.scatter_add_(3, nbr[..., j:j + 1], w[..., j:j + 1])
     conn = conn[..., :k].contiguous()
     own = torch.nn.functional.one_hot(parts.long(), k).bool()
-    cur = conn.gather(2, parts.long()[..., None])[..., 0]
+    cur = conn.gather(3, parts.long()[..., None])[..., 0]
     masked = torch.where(own, torch.full_like(conn, float("-inf")), conn)
     best = torch.argmax(masked, dim=-1).to(torch.int32)
     gain = masked.max(dim=-1).values - cur
+    if lanes:
+        return conn, best, gain
     if part.dim() == 1:
-        return conn[0], best[0], gain[0]
-    return conn, best, gain
+        return conn[0, 0], best[0, 0], gain[0, 0]
+    return conn[0], best[0], gain[0]
 
 
 def csr_to_ell(rows, cols, ewgt, N: int, DEG: int):

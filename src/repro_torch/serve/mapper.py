@@ -10,11 +10,10 @@ mechanisms, all bit-transparent:
   ``core.multisection.LevelPlanner``; a single scheduler thread gathers the
   per-level :class:`PlanGroup`s of ALL active planners, merges groups with
   equal ``exec_key`` and dispatches each merged set as ONE stacked
-  ``batched_partition`` call. Lanes are independent, so each request's
-  result is bit-identical to the direct path (tested). The port's
-  ``batched_partition`` runs the lanes of a dispatch one after another, so
-  on the card a merged dispatch costs about what its requests cost alone;
-  the reference's structure is kept for when the lanes run batched.
+  ``batched_partition`` call, which runs every lane of the dispatch in one
+  batched v-cycle (each kernel launch covers all lanes). Lanes are
+  independent, so each request's result is bit-identical to the direct
+  path (tested).
 * **Content-addressed result cache** — requests are fingerprinted by their
   real CSR arrays + hierarchy vector + config, byte for byte as the JAX
   package fingerprints them (``backend`` enters resolved for the service's
@@ -885,10 +884,7 @@ class MappingService:
             for gi, gr in enumerate(groups):
                 merged.setdefault(gr.exec_key, []).append((req, gi, gr))
         # dispatch ALL merged sets before fetching any, as the reference
-        # does. Kernels queue on the device's stream, but the port's
-        # batched_partition reads metadata on the host between launches, so
-        # today dispatch and fetch barely overlap; batched lanes would let
-        # this pay.
+        # does: kernels queue on the device's stream.
         inflight = []
         for entries in merged.values():
             groups = [e[2] for e in entries]

@@ -397,6 +397,98 @@ def test_lp_gain_rejects_bad_shapes(cuda, ell):
         lp_gain_cuda(adj, adw, part.cpu(), 4)      # part on another device
 
 
+# ---- lane batching: every lane of a dispatch in one launch --------------------
+
+@pytest.mark.parametrize("B,N,k,R", [(3, 4099, 6, 2), (48, 1000, 4, 2), (5, 129, 9, 3),
+                                     (2, 1, 64, 1)])
+def test_lp_gain_lanes_bitwise(cuda, B, N, k, R):
+    """[B, N, DEG] rows and [B, R, N] labels in one launch: bitwise the
+    plain version, and each lane equals the launch of that lane alone."""
+    lanes = [_lp_gain_inputs(N, 24, k, R, "end" if b % 2 else "random", seed=100 * B + b)
+             for b in range(B)]
+    adj, adw, part = (torch.stack(f).to(cuda) for f in zip(*lanes))
+    before = _build.LAUNCHES["lp_gain"]
+    got = lp_gain_cuda(adj, adw, part, k)
+    assert _build.LAUNCHES["lp_gain"] == before + 1
+    _assert_bitwise(got, ref.lp_gain_ref(adj, adw, part, k))
+    for b in range(B):
+        one = lp_gain_cuda(adj[b], adw[b], part[b], k)
+        _assert_bitwise(tuple(x[b] for x in got), one)
+
+
+@pytest.mark.parametrize("B,N,DEG", [(3, 1000, 24), (48, 4097, 24), (4, 31, 64)])
+def test_hem_propose_lanes_bitwise(cuda, B, N, DEG):
+    """[B, N, DEG] in one launch: bitwise the plain version and each lane
+    alone (lane-local ids; a row reads only its own lane's flags)."""
+    lanes = [_hem_inputs(N, DEG, 0.3 * (b % 3), "mid" if b % 2 else "end", seed=b)
+             for b in range(B)]
+    adj, adw, jit, matched = (torch.stack(f).to(cuda) for f in zip(*lanes))
+    before = _build.LAUNCHES["hem_propose"]
+    got = hem_propose_cuda(adj, adw, jit, matched)
+    assert _build.LAUNCHES["hem_propose"] == before + 1
+    assert torch.equal(got, ref.hem_propose_ref(adj, adw, jit, matched))
+    for b in range(B):
+        assert torch.equal(got[b], hem_propose_cuda(adj[b], adw[b], jit[b], matched[b]))
+
+
+@pytest.mark.parametrize("B,D2", [(3, 48), (48, 48), (2, 128)])
+def test_contract_edges_lanes_bitwise(cuda, B, D2):
+    """[B, N, D2] candidate rows (sentinel N) as the B * N rows of one
+    launch: bitwise the plain version and each lane alone."""
+    N = 1000
+    lanes = [_contract_inputs(N, D2, ("random", "sentinel_rows", "cross_32")[b % 3], seed=b)
+             for b in range(B)]
+    cand, w = (torch.stack(f).to(cuda) for f in zip(*lanes))
+    before = _build.LAUNCHES["contract_edges"]
+    got = ops.contract_edges(cand, w)
+    assert _build.LAUNCHES["contract_edges"] == before + 1
+    _assert_bitwise(got, ref.contract_edges_ref(cand, w, N))
+    for b in range(B):
+        _assert_bitwise(tuple(x[b] for x in got), contract_edges_cuda(cand[b], w[b], N))
+
+
+def test_lanes_reject_mismatched_shapes(cuda, ell):
+    _, adj, adw = ell
+    lanes = adj[None].expand(2, *adj.shape).contiguous()
+    lanes_w = adw[None].expand(2, *adw.shape).contiguous()
+    part = torch.zeros(3, 2, adj.shape[0], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        lp_gain_cuda(lanes, lanes_w, part, 4)       # 3 label lanes for 2 graphs
+    with pytest.raises(ValueError):
+        lp_gain_cuda(lanes, lanes_w, part[0], 4)    # labels without a lane axis
+    with pytest.raises(ValueError):
+        hem_propose_cuda(lanes, lanes_w, lanes_w, part[0, 0])   # matched without lanes
+
+
+@pytest.mark.parametrize("backend", ["ell", "xla"])
+def test_batched_dispatch_equals_lanes_alone_on_the_card(cuda, backend):
+    """One batched_partition of four lanes on the card equals each lane's
+    own partition call on the card and the CPU's batch, and launches each
+    kernel as often as one lane alone does."""
+    from repro_torch.core.partition import batched_partition, partition
+    N, M, k, levels = 256, 2048, 4, 2
+    path = G.from_edges(3, [0, 1], [1, 2], device="cpu")
+    lanes = [G.pad_graph(g, N, M) for g in (
+        G.gen_rgg(200, seed=1, device="cpu"), G.gen_grid(14, device="cpu"),
+        G.float_weights(G.gen_rgg(230, seed=2, device="cpu"), seed=4), path)]
+    batch = G.Graph(*(torch.stack(f) for f in zip(*lanes)))
+    eps, salts = [0.03, 0.1, 0.05, 0.2], [7, 1001, 2**31 - 5, 42]
+    deg = G.default_ell_deg(N, M) if backend == "ell" else None
+    want = batched_partition(batch, k, torch.tensor(eps), salts, levels, "eco", backend, deg)
+    _build.reset_launches()
+    got = batched_partition(batch.to(cuda), k, torch.tensor(eps, device=cuda), salts,
+                            levels, "eco", backend, deg)
+    batched = dict(_build.LAUNCHES)
+    assert torch.equal(got.cpu(), want)
+    for b, g in enumerate(lanes):
+        _build.reset_launches()
+        one = partition(g, k, eps[b], levels, "eco", salts[b], backend, deg, device=cuda)
+        assert torch.equal(one.cpu(), want[b])
+        assert dict(_build.LAUNCHES) == batched
+    if backend == "ell":
+        assert batched["lp_gain"] > 0 and batched["contract_edges"] == levels
+
+
 @pytest.mark.parametrize("backend", ["ell", "xla"])
 @pytest.mark.parametrize("gen", ["grid", "rgg"])
 def test_shared_map_card_equals_cpu(cuda, gen, backend):
