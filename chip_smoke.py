@@ -167,6 +167,23 @@
     beside the 58 GB of params, grads and moments): s/step, tok/s, peak
     memory; step 1's loss equals ``loss_fn`` under ``no_grad``; one more
     ``full`` step profiled (device busy share, top ops).
+14. The multi-device ``launch/`` pieces (run after phase 12, before the
+    kernels line). (a) A worker process started after the build (CUDA
+    hidden) records the dry-run of llama3.2-3b x train_4k and
+    moonshot-v1-16b-a3b x decode_32k on the pod1 mesh (``launch.dryrun``:
+    meta DTensors on a fake world of 256 ranks, one rank's step recorded):
+    host seconds, argument/output bytes (held equal to the reference's
+    fixture where ``tests/data/dryrun`` has one), FLOPs and collectives per
+    device. (b) llama's per-rank graph mapped on 16:16, fast, under ell and
+    xla on the card (the five mapping kernels launch), ``pe_of`` equal to
+    the worker's CPU runs, J against the default placement. (c) One MoE
+    layer of moonshot (64 experts, top-6) and of mixtral-8x22b (8 experts,
+    so each split into two d_ff shards) at full width: its 16 virtual
+    shards run one after another and summed in shard order against V = 1,
+    f32 and bf16. (d) A one-rank NCCL world and its ("data", "model")
+    mesh: llama3.2's smoke prefill through flash on the local q/k/v (flash
+    launches) and one f32 train step under the mesh ctx, against
+    ctx=None. Prints "phase 14: N s".
 13. Prints one JSON line with every kernel's numbers (flash's launches and
     max abs error by path), then the contract's last line. Any failed check raises, and the
     script exits non-zero.
@@ -2079,6 +2096,364 @@ def _train_path(dev) -> None:
           f"(d) {total - t_a - t_b - t_c:.1f} s)", flush=True)
 
 
+# ---- phase 14: the multi-device launch/ pieces -------------------------------------
+# (a) the dry-run's cells, recorded by a worker process from the smoke's start
+# (host Python on meta DTensors over a fake world of 256 ranks, no card); the
+# worker also maps llama's graph on the CPU under ell and xla pinned, so the
+# card's pe_of has its CPU twin when phase 14 comes
+# llama3.2-3b x decode_32k: its 8 kv heads do not divide the 16 model ranks,
+# so the KV cache is sharded over the sequence and no all-gather may move it
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k"), ("moonshot-v1-16b-a3b", "decode_32k"),
+                ("llama3.2-3b", "decode_32k"))
+DRYRUN_MAP_CELL = ("llama3.2-3b", "train_4k")
+DRYRUN_FIXTURES = ROOT / "tests" / "data" / "dryrun"
+# (c) one MoE layer at full width, V = 16 shards summed in shard order against
+# V = 1 on the same weights, every token kept (capacity factor E / top_k);
+# tokens per layer chosen to fit beside the f32 weights (mixtral: 19 GB).
+# Each cell's f32 (rtol, atol): another order of the same sums. moonshot's
+# shards own whole experts (read 2.38e-7 on an H100 80GB HBM3); mixtral's
+# split adds two halves of a 16,384-term d_ff sum (read 1.94e-5 there).
+MOE_CELLS = (("moonshot-v1-16b-a3b", 2048, (1e-6, 1e-6)),
+             ("mixtral-8x22b", 512, (1e-5, 1e-4)))
+MOE_V = 16
+MESH_LOSS_RTOL = 1e-5                     # (d) f32, one-rank mesh against ctx=None
+MESH_LEAF_RTOL = 1e-5                     # relative L2 per gradient / param leaf
+
+
+def _dryrun_worker(out_dir: str) -> int:
+    """``chip_smoke.py --dryrun-cells DIR``: record each of DRYRUN_CELLS
+    (``launch.dryrun.run_cell`` on a fake world of 256 ranks) and write its
+    record; extract DRYRUN_MAP_CELL's per-rank graph and map it on the CPU
+    under ell and xla pinned (the card's twin runs in phase 14 (b))."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import SHAPES
+    from repro_torch.core.api import SharedMapConfig, shared_map_direct
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import fx_analysis as FX
+    from repro_torch.launch.comm_graph import extract_fx_graph
+    from repro_torch.launch.mesh import physical_hierarchy, stop_world
+    torch.set_num_threads(2)    # beside the smoke's main process and the export worker
+    failed = 0
+    for arch, shape in DRYRUN_CELLS:
+        cell = next(c for c in SHAPES if c.name == shape)
+        t0 = time.perf_counter()
+        try:
+            rec = dryrun.run_cell(arch, cell, multi_pod=False, keep_graph=True)
+        except Exception as e:   # the next cell still runs; the smoke fails on it
+            import traceback
+            print(f"dryrun worker: {arch} x {shape} failed: {e!r}\n"
+                  f"{traceback.format_exc()[-3000:]}", flush=True)
+            failed += 1
+            continue
+        rec["seconds"] = time.perf_counter() - t0
+        graph = rec.pop("_graph")
+        rec["largest_all_gather"] = max((FX.collective_bytes(n) for n in graph.nodes
+                                         if FX.collective_kind(n) == "all-gather"), default=0)
+        if (arch, shape) == DRYRUN_MAP_CELL:
+            t0 = time.perf_counter()
+            tg = extract_fx_graph(graph, min_tasks=2 * physical_hierarchy(False).k)
+            rec["extract_s"] = time.perf_counter() - t0
+            arrays = {"u": tg.u, "v": tg.v, "w": tg.w, "vwgt": tg.vwgt}
+            h = physical_hierarchy(False)
+            for backend in ("ell", "xla"):
+                t0 = time.perf_counter()
+                r = shared_map_direct(tg, h, SharedMapConfig(preset="fast", backend=backend),
+                                      device="cpu")
+                rec[f"cpu_{backend}_s"] = time.perf_counter() - t0
+                rec[f"cpu_{backend}_J"] = r.J
+                arrays[f"pe_{backend}"] = np.asarray(r.pe_of)
+            np.savez(Path(out_dir) / f"{arch}.npz", **arrays)
+            rec["graph"] = {"n": tg.n, "m": tg.m, "meta": tg.meta,
+                            "fingerprint": tg.fingerprint().hex()}
+        del graph
+        (Path(out_dir) / f"{arch}__{shape}.json").write_text(json.dumps(rec))
+        print(f"dryrun worker: {arch} x {shape} in {rec['seconds']:.1f} s", flush=True)
+    stop_world()
+    return 1 if failed else 0
+
+
+def _start_dryrun(out_dir: str):
+    """Start the dry-run worker (no card: CUDA hidden from it)."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun-cells",
+                             out_dir], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _dryrun_records(dev, _build, worker, out_dir: str) -> None:
+    """Phase 14 (a) and (b): the worker's records beside the reference's
+    fixtures; llama's per-rank graph mapped on 16:16, fast, under ell and
+    xla on the card, pe_of equal to the worker's CPU runs, J against the
+    default placement."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import SharedMapConfig, shared_map_direct
+    from repro_torch.core.mapping import evaluate_J
+    from repro_torch.core.taskgraph import TaskGraph
+    from repro_torch.launch.comm_graph import default_placement
+    from repro_torch.launch.mesh import physical_hierarchy
+
+    t0 = time.perf_counter()
+    log, _ = worker.communicate(timeout=900)
+    if worker.returncode != 0:
+        raise AssertionError(f"dry-run worker exited {worker.returncode}: {log[-3000:]}")
+    print(f"dry-run worker: waited {time.perf_counter() - t0:.2f} s for it here", flush=True)
+    for arch, shape in DRYRUN_CELLS:
+        rec = json.loads((Path(out_dir) / f"{arch}__{shape}.json").read_text())
+        h_, mem = rec["hlo"], rec["memory"]
+        fx = DRYRUN_FIXTURES / f"{arch.replace('.', '_')}__{shape}__pod1.json"
+        ref = json.loads(fx.read_text()) if fx.exists() else None
+        line = (f"dry-run {arch} x {shape} x pod1 (256 fake ranks, host): {rec['seconds']:.1f} s "
+                f"(record {rec['lower_s']} s, {h_['graph_nodes']} nodes); argument bytes "
+                f"{mem['argument_bytes']}, output {mem['output_bytes']}, alias "
+                f"{mem['alias_bytes']}, peak live {mem['temp_bytes']}; FLOPs/device "
+                f"{h_['flops_per_device']!r}; collectives {h_['num_collectives']} bytes "
+                f"{h_['collective_bytes']}, the largest all-gather {rec['largest_all_gather']}; "
+                f"roofline {rec['roofline']}")
+        if rec["mode"] == "decode":
+            # no all-gather moves one layer's cache shard (k or v)
+            layer = mem["alias_bytes"] // (2 * get_config(arch).num_layers)
+            if rec["largest_all_gather"] >= layer:
+                raise AssertionError(f"dry-run {arch} x {shape}: an all-gather of "
+                                     f"{rec['largest_all_gather']} bytes, a layer's cache "
+                                     f"shard {layer}")
+        if ref is not None:
+            if mem["argument_bytes"] != ref["memory"]["argument_bytes"]:
+                raise AssertionError(f"dry-run {arch}: argument bytes {mem['argument_bytes']}, "
+                                     f"the reference's {ref['memory']['argument_bytes']}")
+            line += (f"; the reference's argument bytes equal; FLOPs/device ratio "
+                     f"{h_['flops_per_device'] / ref['hlo']['flops_per_device']:.4f}, "
+                     f"collective bytes ratio "
+                     f"{h_['collective_total'] / ref['hlo']['collective_total']:.4f}")
+        print(line, flush=True)
+        if "graph" not in rec:
+            continue
+        gi = rec["graph"]
+        with np.load(Path(out_dir) / f"{arch}.npz") as a:
+            arrays = dict(a)
+        tg = TaskGraph.from_edges(gi["n"], arrays["u"], arrays["v"], arrays["w"],
+                                  vwgt=arrays["vwgt"], meta=gi["meta"])
+        if tg.fingerprint().hex() != gi["fingerprint"]:
+            raise AssertionError(f"dry-run {arch}: the graph changed on its way from the worker")
+        h = physical_hierarchy(False)
+        gt = tg.to_graph(device=dev)
+        j_def = evaluate_J(gt, h, default_placement(tg.n, h.k), device=dev)
+        no_lp = [k for k in MAPPING_KERNELS if k != "lp_gain"]
+        parts = []
+        for backend, expect in (("ell", MAPPING_KERNELS), ("xla", no_lp)):
+            cfg = SharedMapConfig(preset="fast", backend=backend)
+            r, sec, ln = _run_path(f"dry-run {arch} {backend}",
+                                   lambda: shared_map_direct(tg, h, cfg, device=dev),
+                                   expect, _build)
+            cpu = arrays[f"pe_{backend}"]
+            if r.pe_of.dtype != cpu.dtype or not np.array_equal(r.pe_of, cpu):
+                raise AssertionError(f"dry-run {arch} {backend}: the card's pe_of differs from "
+                                     f"the CPU's (J {r.J!r} / {rec[f'cpu_{backend}_J']!r})")
+            parts.append(f"{backend}: card {sec:.2f} s (CPU {rec[f'cpu_{backend}_s']:.1f} s in "
+                         f"the worker), J {r.J!r}, J/J_default {r.J / j_def:.4f}, pe_of equal "
+                         f"to the CPU's, launches {ln}")
+        print(f"dry-run {arch} per-rank graph: {tg.n} tasks, {tg.m} edges "
+              f"({tg.meta['granularity']}), extraction {rec['extract_s']:.2f} s; on {h} "
+              f"k={h.k}, fast; J_default {j_def!r}; " + "; ".join(parts), flush=True)
+
+
+def _moe_whole(cfg, p: dict, V: int) -> dict:
+    """The V shards' expert weights laid out for V = 1 (shard v's experts are
+    v * E_loc..; expert e's d_ff shards are virtual shards e * V/E.. in order)."""
+    import torch
+    E = cfg.num_experts
+    if E >= V:
+        return {k: p[k].reshape((1, E) + tuple(p[k].shape[2:])) for k in ("w_gate", "w_up",
+                                                                         "w_down")}
+    r = V // E
+    return {"w_gate": torch.cat([p["w_gate"][j::r, 0] for j in range(r)], -1)[None],
+            "w_up": torch.cat([p["w_up"][j::r, 0] for j in range(r)], -1)[None],
+            "w_down": torch.cat([p["w_down"][j::r, 0] for j in range(r)], -2)[None]}
+
+
+def _moe_parallel(dev) -> None:
+    """Phase 14 (c): one MoE layer of each of MOE_CELLS at full width, its
+    MOE_V virtual shards run one after another on the card (NCCL puts one
+    rank on a card) and summed in shard order, against V = 1 on the same
+    weights: f32 within the cell's limits, bf16 within the logits
+    tolerances. A wrong layout must fail the f32 limits: the shards rotated
+    (shard v routes its own experts' tokens through shard v+1's weights)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as MoE
+    for arch, T, f32_tol in MOE_CELLS:
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+        assert MoE.capacity(cfg, T) == T
+        E_loc, F_v = MoE.moe_layout(cfg, MOE_V)
+        g = torch.Generator(device=dev).manual_seed(0)
+        with torch.no_grad():
+            p = {k: w.data for k, w in MoE.moe_params(cfg, g, device=dev, V=MOE_V).items()}
+            whole = _moe_whole(cfg, p, MOE_V)
+            x = torch.randn(T, cfg.d_model, generator=g, device=dev)
+            notes = []
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                total = torch.zeros_like(xd)
+                for virt in range(MOE_V):
+                    total = total + MoE.moe_ffn_shard(cfg, xd, p["router"], p["w_gate"][virt],
+                                                      p["w_up"][virt], p["w_down"][virt],
+                                                      virt, MOE_V)
+                torch.cuda.synchronize()
+                t_sh = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                one = MoE.moe_ffn_shard(cfg, xd, p["router"], whole["w_gate"][0],
+                                        whole["w_up"][0], whole["w_down"][0])
+                torch.cuda.synchronize()
+                t_one = time.perf_counter() - t0
+                rtol, atol = f32_tol if dtype == torch.float32 else (LOGITS_RTOL, LOGITS_ATOL)
+                diff = float((total.float() - one.float()).abs().max())
+                if not torch.allclose(total.float(), one.float(), rtol=rtol, atol=atol):
+                    raise AssertionError(f"MoE {arch} {dtype}: the {MOE_V} shards' sum differs "
+                                         f"from V = 1 by {diff} (rtol {rtol}, atol {atol})")
+                notes.append(f"{str(dtype)[6:]}: max abs diff {diff:.3g} of outputs up to "
+                             f"{float(one.float().abs().max()):.3g} (rtol {rtol}, atol {atol}), "
+                             f"shards {t_sh * 1e3:.1f} ms, whole {t_one * 1e3:.1f} ms")
+                if dtype != torch.float32:
+                    continue
+                wrong = torch.zeros_like(xd)
+                for virt in range(MOE_V):
+                    w = (virt + 1) % MOE_V
+                    wrong = wrong + MoE.moe_ffn_shard(cfg, xd, p["router"], p["w_gate"][w],
+                                                      p["w_up"][w], p["w_down"][w], virt, MOE_V)
+                bad = float((wrong - one).abs().max())
+                if torch.allclose(wrong, one, rtol=rtol, atol=atol):
+                    raise AssertionError(f"MoE {arch}: the rotated layout passes the f32 limits")
+                notes.append(f"the shards rotated read {bad:.3g}")
+                del wrong
+        print(f"MoE {arch} at full width (E {cfg.num_experts}, top-{cfg.top_k}, d_model "
+              f"{cfg.d_model}, d_ff {cfg.d_ff}), {T} tokens: V = {MOE_V} (E_loc {E_loc}, F_v "
+              f"{F_v}) summed in shard order against V = 1; " + "; ".join(notes), flush=True)
+        del p, whole, x, total, one
+        torch.cuda.empty_cache()
+
+
+def _mesh_one_rank(dev, _build) -> None:
+    """Phase 14 (d): a one-rank NCCL world and its ("data", "model") mesh.
+    llama3.2-3b's smoke prefill through flash (each rank's local q/k/v) and
+    one f32 train step under the mesh ctx, against ctx=None."""
+    import copy
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import shardings as SH
+    from repro_torch.models import model as MM
+    from repro_torch.models.sharding import ShardCtx
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, loss_and_grads, make_train_step
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=dev if dev.index is not None
+                            else torch.device("cuda", 0))
+    try:
+        mesh = DeviceMesh("cuda", torch.tensor([[0]]), mesh_dim_names=("data", "model"))
+        cfg = get_smoke_config(ARCH)
+        params = MM.init_fn(cfg, torch.Generator(device=dev).manual_seed(0))
+        toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 300)),
+                               device=dev)
+        want = MM.prefill_fn(cfg, params, {"tokens": toks}, ShardCtx(use_flash=True))
+        mparams = SH.shard_params(copy.deepcopy(params), mesh)
+        ctx = ShardCtx(mesh=mesh, use_flash=True)
+        batch = {"tokens": toks}
+        batch = SH.place_tree(batch, SH.batch_specs(cfg, batch, ctx), mesh)
+        got, sec, ln = _run_path("mesh prefill", lambda: MM.prefill_fn(cfg, mparams, batch, ctx),
+                                 ["flash_attention"], _build)
+        got = got.full_tensor()
+        diff = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), atol=LOGITS_ATOL, rtol=LOGITS_RTOL):
+            raise AssertionError(f"mesh prefill: differs from ctx=None by {diff}")
+        print(f"one-rank NCCL mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: {cfg.name} "
+              f"prefill B=2 S=300 through flash on the local q/k/v: {sec * 1e3:.1f} ms, flash "
+              f"launches {ln['flash_attention']}, logits against ctx=None: "
+              f"{'bitwise equal' if torch.equal(got, want) else f'max abs diff {diff:.4g}'} "
+              f"(held within atol {LOGITS_ATOL} rtol {LOGITS_RTOL})", flush=True)
+
+        _f32_compute(True)
+        try:
+            rng = np.random.default_rng(2)
+            b = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 64)), device=dev)
+                 for k in ("tokens", "labels")}
+            one = init_train_state(cfg, torch.Generator(device=dev).manual_seed(3))
+            sharded = SH.shard_state(init_train_state(
+                cfg, torch.Generator(device=dev).manual_seed(3)), mesh)
+            mctx = ShardCtx(mesh=mesh)
+            bd = SH.place_tree(b, SH.batch_specs(cfg, b, mctx), mesh)
+            loss, grads = loss_and_grads(cfg, one.params, b)
+            mloss, mgrads = loss_and_grads(cfg, sharded.params, bd, mctx)
+            worst = 0.0
+            for k, gw in grads.items():
+                m = mgrads[k].full_tensor()
+                worst = max(worst, float((m - gw).norm() / gw.norm().clamp_min(1e-30)))
+            mloss = float(mloss.full_tensor())
+            if abs(mloss - float(loss)) > MESH_LOSS_RTOL * abs(float(loss)) or \
+                    worst > MESH_LEAF_RTOL:
+                raise AssertionError(f"mesh train step: loss {mloss!r} / {float(loss)!r}, worst "
+                                     f"gradient leaf relative L2 {worst}")
+            step = make_train_step(cfg, AdamWConfig())
+            mstep = make_train_step(cfg, AdamWConfig(), mctx)
+            one, _ = step(one, b)
+            sharded, _ = mstep(sharded, bd)
+            worst_p = max(float((w2.full_tensor() - w1).detach().norm()
+                                / w1.detach().norm().clamp_min(1e-30))
+                          for (_, w1), (_, w2) in zip(one.params.named_parameters(),
+                                                      sharded.params.named_parameters()))
+            if worst_p > MESH_LEAF_RTOL:
+                raise AssertionError(f"mesh train step: params after it apart by {worst_p}")
+            print(f"one-rank NCCL mesh: {cfg.name} f32 train step B=2 S=64 under the mesh ctx "
+                  f"against ctx=None: loss {mloss!r} / {float(loss)!r}, worst gradient leaf "
+                  f"relative L2 {worst:.3g}, params after the AdamW step {worst_p:.3g} "
+                  f"(held within loss rtol {MESH_LOSS_RTOL}, leaf {MESH_LEAF_RTOL})", flush=True)
+        finally:
+            _f32_compute(False)
+    finally:
+        dist.destroy_process_group()
+
+
+def _launch_path(dev, _build, worker, out_dir: str) -> None:
+    """Phase 14: the multi-device launch/ pieces (see the module doc). (c)
+    and (d) run first, so the worker has the longest; each part runs even
+    when one before it failed, and the phase then raises the first error."""
+    import traceback
+
+    import torch
+    t0 = time.perf_counter()
+    parts = (("(c)", lambda: _moe_parallel(dev)), ("(d)", lambda: _mesh_one_rank(dev, _build)),
+             ("(a)+(b)", lambda: _dryrun_records(dev, _build, worker, out_dir)))
+    errors, took = [], []
+    for name, part in parts:
+        t = time.perf_counter()
+        try:
+            part()
+        except Exception as e:
+            errors.append(e)
+            print(f"phase 14 {name} FAILED: {e!r}\n{traceback.format_exc()[-4000:]}",
+                  flush=True)
+        torch.cuda.empty_cache()
+        took.append(f"{name} {time.perf_counter() - t:.1f} s")
+    if errors:
+        raise errors[0]
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s in all ({', '.join(took)})", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2121,6 +2496,9 @@ def main() -> int:
     export_dir = tempfile.TemporaryDirectory()   # phase 9 (d)'s graphs, made meanwhile
     exports = _start_exports(export_dir.name)
     atexit.register(exports.kill)   # nothing once it has ended
+    dryrun_dir = tempfile.TemporaryDirectory()   # phase 14 (a)'s records, made meanwhile
+    dryruns = _start_dryrun(dryrun_dir.name)
+    atexit.register(dryruns.kill)
     for source in ("flash_attention.cu", "lp_gain.cu", "contract_edges.cu", "hem_propose.cu",
                    "mapcost.cu", "powf.cu"):
         for line in _build.ptxas_report(source):
@@ -2565,6 +2943,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     _train_path(dev)
 
+    # ---- 14. the multi-device launch/ pieces ----------------------------------
+    print(f"phase 14 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    _launch_path(dev, _build, dryruns, dryrun_dir.name)
+
     # ---- 13. the kernels line and the contract's last line ------------------
     print(f"phase 13 starts at {time.perf_counter() - t_start:.1f} s", flush=True)
     for r in rows:
@@ -2589,4 +2972,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--export-cells"]:
         sys.exit(_export_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--dryrun-cells"]:
+        sys.exit(_dryrun_worker(sys.argv[2]))
     sys.exit(main())

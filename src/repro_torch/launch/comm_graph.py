@@ -60,6 +60,11 @@ kinds, FLOPs and bytes of ``launch/fx_analysis.py``:
 * The graph is not the reference's HLO graph bit for bit (another IR, no
   compiler passes); its FLOP total is the same (whisper-tiny: equal to 4
   digits, ``tests/test_torch_model_graphs.py``).
+* **Collectives** — a graph traced per rank on DTensors (``make_fx``,
+  ``launch/dryrun.py``) holds ``_c10d_functional`` collectives: each is a
+  task, ``wait_tensor`` is transparent, and the collective's payload
+  divided by its group size is added on top of its in-edges' dataflow
+  weight, as for the HLO's.
 """
 from __future__ import annotations
 
@@ -337,8 +342,8 @@ def compile_model_cell(arch: str, *, seq_len: int = 64, batch: int = 4,
     host. Only ``mode="train"`` (the loss) is supported, as in the
     reference."""
     if mode != "train":
-        raise ValueError("compile_model_cell supports mode='train' only; "
-                         "prefill/decode cells are ROADMAP.md, Queue 1, item 10")
+        raise ValueError("compile_model_cell supports mode='train' only, as the "
+                         "reference's; launch/dryrun.py traces prefill and decode cells")
     from ..configs.registry import get_config
     from ..models import model as M
 
@@ -361,8 +366,8 @@ def model_comm_graph(arch: str, *, seq_len: int = 64, batch: int = 4,
 def extract_fx_graph(exported, *, granularity: str = "fused",
                      min_tasks: int | None = None,
                      meta: dict | None = None) -> TaskGraph:
-    """The communication graph of an ``ExportedProgram`` (or a
-    ``torch.fx.Graph``); ``granularity`` and ``min_tasks`` as in
+    """The communication graph of an ``ExportedProgram``, a ``GraphModule``
+    or a ``torch.fx.Graph``; ``granularity`` and ``min_tasks`` as in
     ``extract_comm_graph`` (``fused`` is the loop-fusion coarsening of
     the module docstring)."""
     if granularity not in ("fused", "op"):
@@ -427,11 +432,16 @@ def _build_fx(graph, granularity: str) -> TaskGraph:
     edges: dict[tuple[int, int], float] = defaultdict(float)
     for t in tasks:
         b = tid[group[t]]
+        # a collective's payload re-crosses the network: its per-rank share
+        # rides on top of its in-edges' dataflow weight
+        share = 0.0
+        if FX.collective_kind(t) is not None:
+            share = FX.collective_bytes(t) / FX.collective_group_size(t)
         for i in FX.input_nodes(t):
             prods = resolve(i)
             if not prods:
                 continue
-            per = FX.node_bytes(i) / len(prods)
+            per = (FX.node_bytes(i) + share) / len(prods)
             for p in prods:
                 a = tid[group[p]]
                 if a != b and per > 0.0:

@@ -26,12 +26,21 @@ node. Nothing here runs the graph or needs a device.
   produce nothing. Every other call is a task. A task is *pointwise* when
   its ATen op carries ``torch.Tag.pointwise``, or is a cast or a mask
   (``to``, ``where``, ``&``...): the ops XLA's loop fusion merges.
+* **Collectives.** A graph recorded per rank (``record_local`` of a step
+  on DTensors, ``launch/dryrun.py``) holds local ATen ops and
+  ``_c10d_functional`` collectives, the port's counterpart of the SPMD
+  HLO. A collective (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+  ``all_reduce``, ``all_to_all_single``) is a task of the HLO kind
+  ``collective_kind`` names, over a group of ``collective_group_size``
+  ranks; its payload is its input's bytes (``analyze_hlo``'s operand
+  bytes). ``wait_tensor`` is transparent.
 """
 from __future__ import annotations
 
 import operator
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 _MATMULS = ("mm", "bmm", "addmm", "baddbmm", "matmul")
 _CONVS = ("convolution", "conv1d", "conv2d", "_convolution")
@@ -39,6 +48,13 @@ _CONVS = ("convolution", "conv1d", "conv2d", "_convolution")
 _ALSO_POINTWISE = ("to", "_to_copy", "type_as", "where", "__and__", "__or__",
                    "bitwise_and", "bitwise_or", "logical_and", "logical_or",
                    "logical_not", "masked_fill", "clone")
+
+
+# _c10d_functional op -> the HLO collective kind (hlo_analysis._COLLECTIVES)
+COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_reduce": "all-reduce",
+               "all_to_all_single": "all-to-all"}
 
 
 def _op_name(node) -> str:
@@ -108,7 +124,8 @@ def is_transparent(node) -> bool:
     if node.target is operator.getitem:
         return True
     name = _op_name(node)
-    if name.startswith("_assert") or name in ("detach", "detach_", "alias"):
+    if name.startswith("_assert") or name in ("detach", "detach_", "alias", "wait_tensor",
+                                              "_wrap_tensor_autograd"):
         return True
     if not isinstance(node.target, torch._ops.OpOverload) or name in _ALSO_POINTWISE:
         return False
@@ -132,6 +149,29 @@ def is_pointwise(node) -> bool:
         return True
     return isinstance(node.target, torch._ops.OpOverload) and \
         torch.Tag.pointwise in node.target.tags
+
+
+def collective_kind(node) -> str | None:
+    """The HLO kind of a ``_c10d_functional`` collective node, else None."""
+    if node.op != "call_function" or not isinstance(node.target, torch._ops.OpOverload):
+        return None
+    if not node.target._schema.name.startswith("_c10d_functional"):
+        return None
+    return COLLECTIVES.get(_op_name(node))
+
+
+def collective_group_size(node) -> int:
+    """The ranks a collective node runs over (its process group's size)."""
+    name = _op_name(node)
+    if name in ("all_gather_into_tensor", "reduce_scatter_tensor"):
+        return int(node.args[-2])
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(node.args[-1]).size()
+
+
+def collective_bytes(node) -> int:
+    """A collective's payload: its input's bytes."""
+    return node_bytes(node.args[0])
 
 
 def _einsum_flops(equation: str, shapes: list[tuple[int, ...]]) -> int:
@@ -177,3 +217,130 @@ def total_flops(graph: torch.fx.Graph) -> float:
     """The FLOPs of every task of ``graph`` (``hlo_analysis.analyze_hlo``'s
     ``flops`` term)."""
     return float(sum(node_flops(n) for n in graph.nodes if is_task(n)))
+
+
+def collective_totals(graph: torch.fx.Graph) -> tuple[dict, dict]:
+    """({kind: payload bytes}, {kind: count}) over the graph's collectives,
+    as ``analyze_hlo``'s ``collective_bytes`` and ``num_collectives``."""
+    nbytes: dict[str, float] = {}
+    count: dict[str, int] = {}
+    for n in graph.nodes:
+        kind = collective_kind(n)
+        if kind is not None:
+            nbytes[kind] = nbytes.get(kind, 0.0) + float(collective_bytes(n))
+            count[kind] = count.get(kind, 0) + 1
+    return nbytes, count
+
+
+def peak_live_bytes(graph: torch.fx.Graph, inputs: int = 0) -> int:
+    """The most bytes live at once when the graph's nodes run in order: the
+    ``inputs`` bytes (the step's arguments) throughout, a node's output
+    from its node to its last use (the graph's outputs to the end); views
+    and other transparent nodes own nothing. It is not a compiler's buffer
+    assignment: no reuse, no in-place planning beyond what the graph holds."""
+    nodes = list(graph.nodes)
+    last = {}
+    for i, n in enumerate(nodes):
+        for a in input_nodes(n):
+            last[a] = i
+    live = peak = int(inputs)
+    ends: dict[int, int] = {}
+    for i, n in enumerate(nodes):
+        if n.op == "call_function" and not is_transparent(n) and not _writes_in_place(n):
+            b = node_bytes(n)
+            live += b
+            end = len(nodes) if any(u.op == "output" for u in n.users) else last.get(n, i)
+            ends[end] = ends.get(end, 0) + b
+        peak = max(peak, live)
+        live -= ends.pop(i, 0)
+    return int(peak)
+
+
+def _writes_in_place(node) -> bool:
+    """True for an op whose result is one of its inputs, written (``add_``,
+    ``copy_``...): it owns no storage of its own."""
+    if not isinstance(node.target, torch._ops.OpOverload):
+        return False
+    return any(r.alias_info is not None and r.alias_info.is_write
+               for r in node.target._schema.returns)
+
+
+class LocalRecorder(TorchDispatchMode):
+    """Records the LOCAL ATen ops (and ``_c10d_functional`` collectives)
+    that a step on DTensors runs on one rank into a ``torch.fx.Graph``.
+
+    Under this mode an op on DTensors is declined (``NotImplemented``), so
+    DTensor dispatches it as it would, and the local ops it runs on the
+    shards come back here and are recorded: one ``call_function`` node per
+    op that touches a meta tensor (the shards of a dry-run are meta; the
+    host-side tensor ops of DTensor's own planning are not the program),
+    with the result as ``meta["val"]``. A tensor first seen as an argument
+    becomes a placeholder; an in-place op's result is its node from then
+    on. Unlike ``make_fx`` it keeps DTensor's sharding-propagation cache
+    on, so a full-width step records in seconds."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils.weak import WeakIdKeyDictionary
+        self.graph = torch.fx.Graph()
+        self._node = WeakIdKeyDictionary()
+        self._inputs = 0
+
+    def _arg(self, a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        nd = self._node.get(a)
+        if isinstance(nd, tuple):     # an item of a tuple result, first used now
+            nd = self.graph.call_function(operator.getitem, nd)
+            nd.meta["val"] = a
+            self._node[a] = nd
+        if nd is None:
+            nd = self.graph.placeholder(f"in{self._inputs}")
+            self._inputs += 1
+            nd.meta["val"] = a
+            self._node[a] = nd
+        return nd
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        from torch.utils._pytree import tree_flatten, tree_map
+        kwargs = kwargs or {}
+        flat, _ = tree_flatten((args, kwargs))
+        if any(isinstance(a, DTensor) for a in flat):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        outs, _ = tree_flatten(out)
+        if not any(isinstance(t, torch.Tensor) and t.device.type == "meta"
+                   for t in flat + outs):
+            return out
+        nd = self.graph.call_function(func, tree_map(self._arg, args),
+                                      tree_map(self._arg, kwargs))
+        nd.meta["val"] = out
+        if isinstance(out, torch.Tensor):
+            self._node[out] = nd
+        elif isinstance(out, (tuple, list)):   # items get a getitem node when used
+            for i, t in enumerate(out):
+                if isinstance(t, torch.Tensor):
+                    self._node[t] = (nd, i)
+        return out
+
+    def finish(self, result) -> torch.fx.Graph:
+        """Close the graph with ``result`` (local tensors, or DTensors whose
+        shards are taken) as its output, and return it."""
+        from torch.utils._pytree import tree_map
+
+        def local(t):
+            if isinstance(t, torch.Tensor) and hasattr(t, "to_local"):
+                t = t._local_tensor
+            return self._arg(t) if isinstance(t, torch.Tensor) else t
+        self.graph.output(tree_map(local, result))
+        return self.graph
+
+
+def record_local(fn, *args, **kwargs) -> tuple[torch.fx.Graph, object]:
+    """``(graph, result)``: ``fn(*args, **kwargs)`` run once, eagerly, with
+    its local ops recorded by ``LocalRecorder``."""
+    rec = LocalRecorder()
+    with rec:
+        result = fn(*args, **kwargs)
+    return rec.finish(result), result

@@ -7,13 +7,23 @@ onto the physical chip hierarchy, and the result orders a mesh's devices
 row-major order up to group symmetry and strictly beats scrambled orders.
 
 Host numpy throughout: the graph has 256 or 512 tasks and the mapping is
-the dense one-to-one problem. The reference's ``make_production_mesh``
-builds a ``jax.sharding.Mesh`` from this order; the port's mesh waits for
-its sharded front end (ROADMAP.md, Queue 1, item 10).
+the dense one-to-one problem.
+
+``make_production_mesh`` builds the production meshes as
+``torch.distributed.device_mesh.DeviceMesh``es over the default process
+group (``torchrun`` with 256 or 512 ranks, or the fake world of
+``start_fake_world`` that the dry-run and the tests trace on):
+
+  single-pod: (data=16, model=16) = 256 ranks
+  multi-pod : (pod=2, data=16, model=16) = 512 ranks
+
+Mesh position i (row-major) holds rank i under ``"default"`` and rank
+``sharedmap_device_order()[i]`` under ``"sharedmap"``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.hierarchy import Hierarchy, tpu_v5e_hierarchy
 from ..core.mapping import greedy_mapping, map_cost_dense, swap_refine
@@ -83,3 +93,48 @@ def sharedmap_device_order(multi_pod: bool = False, seed: int = 0) -> np.ndarray
     candidates = [np.arange(k, dtype=np.int64), greedy_mapping(C, h)]
     best = min(candidates, key=lambda p: map_cost_dense(C, D, p))
     return swap_refine(C, h, best, seed=seed)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_order: str = "default",
+                         device_type: str | None = None):
+    """The (16, 16) ``("data", "model")`` mesh, or (2, 16, 16) ``("pod",
+    "data", "model")`` with ``multi_pod``, over the default process group,
+    on ``device_type`` (``None`` = ``"cuda"``). Raises unless the group
+    exists with exactly that many ranks: there is no one-device fallback."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != need:
+        raise RuntimeError(
+            f"the {'pod2' if multi_pod else 'pod1'} mesh needs a process group of world "
+            f"size {need}; " + ("none is initialized" if have is None else f"it has {have}"))
+    if device_order == "default":
+        ranks = np.arange(need)
+    elif device_order == "sharedmap":
+        ranks = sharedmap_device_order(multi_pod=multi_pod)
+    else:
+        raise ValueError(device_order)
+    return DeviceMesh(device_type or "cuda", torch.as_tensor(ranks.reshape(shape)),
+                      mesh_dim_names=axes)
+
+
+def start_fake_world(world_size: int, rank: int = 0) -> None:
+    """Initialize the default process group as torch's fake backend: a world
+    of ``world_size`` ranks in this one process, whose collectives move no
+    data. It backs shape, byte and count tracing only (the dry-run, tests),
+    never a value."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world_size)
+
+
+def stop_world() -> None:
+    """Destroy the default process group, if there is one."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -1,5 +1,6 @@
-"""Training driver on one device (the port of ``repro/launch/train.py``,
-the same flags, plus ``--device``).
+"""Training driver: real training at container scale, production-mesh
+training over a launched process group (the port of
+``repro/launch/train.py``, the same flags, plus ``--device``).
 
 Examples:
     # ~20M-param llama-style model, 200 steps, on the card
@@ -13,14 +14,25 @@ Examples:
     # on the CPU
     ... --device cpu
 
-``--mesh pod1``/``pod2`` and ``--device-order sharedmap`` (production
-meshes over many devices) are ROADMAP.md, Queue 1, item 10, and raise.
+    # the production mesh: one rank per card, 256 (pod1) or 512 (pod2)
+    torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
+        --arch llama3.2-3b --mesh pod1 --device-order sharedmap
+
+``--mesh pod1``/``pod2`` builds ``make_production_mesh`` over the launched
+process group (``torchrun``'s environment; NCCL on the card, gloo on the
+CPU), with ``--device-order sharedmap`` ordering its ranks, and trains as
+eager SPMD: params and moments placed by ``launch/shardings.py``, the batch
+over the batch axes, the ctx passed to ``make_train_step``. Under another
+world size, or with no process group, it raises with the size needed.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
+
+import torch
 
 from ..configs.registry import ARCHS, get_config, get_smoke_config
 from ..core.graph import resolve_device
@@ -28,20 +40,39 @@ from ..data.pipeline import DataConfig, make_batch
 from ..train.checkpoint import Checkpointer
 from ..train.fault_tolerance import FailureInjector, StepWatchdog, run_with_restarts
 from ..train.optimizer import AdamWConfig
+from ..models.sharding import ShardCtx
 from ..train.train_step import init_train_state, make_train_step
+from . import shardings as SH
 
 
-def build(args):
-    if args.mesh != "none" or args.device_order != "default":
-        raise NotImplementedError(
-            "repro_torch trains on one device: --mesh pod1/pod2 and --device-order "
-            "sharedmap are ROADMAP.md, Queue 1, item 10, 'launch/'")
+def _join_group(dev) -> None:
+    """Join the process group ``torchrun`` launched this rank into (its
+    environment names it); without one, nothing (the mesh then raises)."""
+    import torch.distributed as dist
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+
+
+def build(args, dev=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    ctx = None
+    if args.mesh != "none":
+        from .mesh import make_production_mesh
+        dev = dev if dev is not None else resolve_device(args.device)
+        _join_group(dev)
+        mesh = make_production_mesh(multi_pod=(args.mesh == "pod2"),
+                                    device_order=args.device_order,
+                                    device_type=dev.type)
+        ctx = ShardCtx(mesh=mesh,
+                       batch_axes=("pod", "data") if args.mesh == "pod2" else ("data",))
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 20, 5))
-    return cfg, None, opt_cfg
+    return cfg, ctx, opt_cfg
 
 
 def main(argv=None) -> dict:
@@ -67,8 +98,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
-    cfg, ctx, opt_cfg = build(args)
     dev = resolve_device(args.device)
+    cfg, ctx, opt_cfg = build(args, dev)
     dc = DataConfig(seq_len=args.seq, global_batch=args.batch, seed=args.seed)
     ckpt = Checkpointer(args.restore_dir or args.checkpoint_dir)
     injector = FailureInjector(fail_at_steps=tuple(args.fail_at))
@@ -77,7 +108,9 @@ def main(argv=None) -> dict:
     summary = {"restarts": 0}
 
     def run(start_step: int) -> int:
-        state = init_train_state(cfg, args.seed, dev)
+        state = init_train_state(cfg, args.seed, dev, V=ctx.model_size if ctx else 1)
+        if ctx is not None:   # a restore below keeps these placements
+            state = SH.shard_state(state, ctx.mesh)
         step0 = 0
         ckpt.wait()   # a save still in flight from before the failure lands first
         latest = ckpt.latest_step()
@@ -92,6 +125,8 @@ def main(argv=None) -> dict:
         for step in range(step0, args.steps):
             injector.check(step)
             batch = make_batch(cfg, dc, step, dev)
+            if ctx is not None:
+                batch = SH.place_tree(batch, SH.batch_specs(cfg, batch, ctx), ctx.mesh)
             t0 = time.time()
             state, metrics = train_step(state, batch)
             loss = float(metrics["loss"])

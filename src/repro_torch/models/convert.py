@@ -26,9 +26,14 @@ from .whisper import EncDecLM
 
 
 def params_from_jax(cfg: ModelConfig, params, device=None):
-    """``params`` as nested dicts of arrays -> the port's params on ``device``."""
+    """``params`` as nested dicts of arrays -> the port's params on ``device``.
+    The MoE's expert leaves ``[V, E_loc, ...]`` come across at the V they
+    were made for (``moe_virtual_shards``)."""
     dev = resolve_device(device)
-    model = (EncDecLM if cfg.is_encoder_decoder else DecoderLM)(cfg, device="meta")
+    if cfg.is_encoder_decoder:
+        model = EncDecLM(cfg, device="meta")
+    else:
+        model = DecoderLM(cfg, device="meta", V=moe_virtual_shards(params))
     leaves = set()
     for name, w in list(model.named_parameters()):
         path, _ = reference_path(name)
@@ -44,6 +49,19 @@ def params_from_jax(cfg: ModelConfig, params, device=None):
         raise ValueError(f"the reference's params hold {n_ref} leaves, the port's "
                          f"{cfg.name} has {len(leaves)}")
     return model
+
+
+def moe_virtual_shards(tree) -> int:
+    """V of the reference's params: dim -4 of an MoE ``w_gate`` leaf (``[..,
+    V, E_loc, D, F_v]``), 1 without one."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == "moe" and isinstance(v, dict) and "w_gate" in v:
+                return int(np.shape(v["w_gate"])[-4])
+            got = moe_virtual_shards(v)
+            if got != 1:
+                return got
+    return 1
 
 
 def _leaves(tree):
@@ -83,8 +101,7 @@ def to_reference_tree(named: dict) -> dict:
     tree: dict = {}
     for name, w in named.items():
         path, i = reference_path(name)
-        a = (w.detach().to("cpu", copy=True).numpy() if isinstance(w, torch.Tensor)
-             else np.asarray(w))
+        a = host_array(w)
         if i is None:
             _put(tree, path, a)
         else:
@@ -94,6 +111,16 @@ def to_reference_tree(named: dict) -> dict:
             raise ValueError(f"{'/'.join(path)}: layers {sorted(layers)} are not 0..L-1")
         _put(tree, list(path), np.stack([layers[i] for i in range(len(layers))]))
     return tree
+
+
+def host_array(w) -> np.ndarray:
+    """A host copy of ``w``: a tensor (a DTensor gathered whole first) or
+    an array."""
+    if not isinstance(w, torch.Tensor):
+        return np.asarray(w)
+    if hasattr(w, "full_tensor"):
+        w = w.full_tensor()
+    return w.detach().to("cpu", copy=True).numpy()
 
 
 def _put(tree: dict, path: list[str], value) -> None:

@@ -129,7 +129,45 @@ def embed_params(cfg: ModelConfig, generator=None, device=None) -> nn.ParameterD
 
 
 def embed_tokens(p, tokens):
+    from .sharding import is_dtensor
+    if is_dtensor(p["tok"]):
+        return _embed_sharded(p["tok"], tokens).to(CDTYPE)
     return p["tok"][tokens].to(CDTYPE)
+
+
+def _embed_sharded(tok, tokens):
+    """The rows of a DTensor table, vocab-parallel (as Megatron's): the
+    table is gathered over every mesh axis but those sharding its vocab,
+    the tokens over those; each rank looks up the ids in its vocab slice
+    (zero elsewhere), and the rows are summed over the vocab axes
+    (``sharding.sum_over``). A rank's table gradient covers its own tokens
+    only, so it is partial over the axes that shard the tokens. DTensor's
+    own embedding rule leaves a masked partial whose backward some torch
+    releases cannot place."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from .sharding import chunk_offset, sum_over
+
+    mesh = tok.device_mesh
+    vocab = [i for i, pl in enumerate(tok.placements) if pl == Shard(0)]
+    tok = tok.redistribute(mesh, [Shard(0) if i in vocab else Replicate()
+                                  for i in range(mesh.ndim)])
+    ids_pl = [Replicate() if i in vocab else pl for i, pl in enumerate(tokens.placements)]
+    tokens = tokens.redistribute(mesh, ids_pl)
+    off = chunk_offset(mesh, vocab, tok.shape[0])
+
+    def local(t, ids):
+        idx = ids.long() - off
+        ok = (idx >= 0) & (idx < t.shape[0])
+        rows = F.embedding(idx.clamp(0, max(t.shape[0] - 1, 0)), t)
+        return sum_over(torch.where(ok[..., None], rows, 0.0), mesh, vocab)
+
+    grad_pl = [Shard(0) if i in vocab else Partial() if isinstance(pl, Shard) else Replicate()
+               for i, pl in enumerate(ids_pl)]
+    return local_map(local, out_placements=(ids_pl,),
+                     in_placements=(list(tok.placements), ids_pl),
+                     in_grad_placements=(grad_pl, ids_pl), device_mesh=mesh)(tok, tokens)
 
 
 def unembed(cfg: ModelConfig, p, x):
@@ -138,7 +176,13 @@ def unembed(cfg: ModelConfig, p, x):
 
 
 def softmax_xent(logits, labels, mask=None):
-    """Mean cross-entropy in f32. logits [..., V], labels [...] int."""
+    """Mean cross-entropy in f32. logits [..., V], labels [...] int.
+
+    On a DTensor (a sharded loss) the vocab may be sharded over one mesh
+    axis: see ``_xent_sharded``."""
+    from .sharding import is_dtensor
+    if is_dtensor(logits):
+        return _xent_sharded(logits, labels, mask)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
@@ -146,6 +190,47 @@ def softmax_xent(logits, labels, mask=None):
     if mask is not None:
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return nll.mean()
+
+
+def _xent_sharded(logits, labels, mask):
+    """``softmax_xent`` of a DTensor ``logits`` whose vocab dim is sharded
+    over at most one mesh axis (vocab-parallel, as Megatron's): each rank
+    takes the logsumexp of its vocab slice and its label's logit where the
+    label falls in the slice (else 0); the [.., n_shards, 2] pairs are
+    all-gathered over the vocab axis, then logz is the logsumexp of the
+    slices' and the gold logit their sum. Returns a replicated scalar."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from .sharding import chunk_offset
+
+    mesh, vd = logits.device_mesh, logits.ndim - 1
+    pl = list(logits.placements)
+    tp = [i for i, p in enumerate(pl) if p == Shard(vd)]
+    if len(tp) > 1:
+        raise ValueError(f"vocab sharded over {len(tp)} mesh axes: {pl}")
+    rest = [Replicate() if p == Shard(vd) else p for p in pl]
+    labels = labels.redistribute(mesh, rest)
+    off = chunk_offset(mesh, tp, logits.shape[vd])
+
+    def local(lg, lab):
+        lg = lg.float()
+        idx = lab.long() - off
+        ok = (idx >= 0) & (idx < lg.shape[-1])
+        gold = torch.gather(lg, -1, idx.clamp(0, max(lg.shape[-1] - 1, 0))[..., None])[..., 0]
+        pair = torch.stack([torch.logsumexp(lg, -1), torch.where(ok, gold, 0.0)], -1)
+        return pair[..., None, :]
+
+    # the pairs' new dim [.., n, 2] sits where the vocab was, sharded alike
+    pairs = local_map(local, out_placements=(pl,), in_placements=(pl, rest),
+                      device_mesh=mesh)(logits, labels)
+    pairs = pairs.redistribute(mesh, rest)                     # [..., n, 2]
+    nll = torch.logsumexp(pairs[..., 0], -1) - pairs[..., 1].sum(-1)
+    if mask is not None:
+        loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    else:
+        loss = nll.mean()
+    return loss.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def softplus(x):

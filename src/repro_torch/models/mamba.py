@@ -22,6 +22,7 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import associative_scan, dense_init, full_param, softplus
+from .sharding import split_ready
 
 P_HEAD = 64
 
@@ -129,10 +130,10 @@ def apply_mamba(cfg: ModelConfig, p, x, chunk: int = 128):
     dt = _dt(p, u)
     a = -torch.exp(p["A_log"])                                           # [H] < 0
     lamb = dt * a                                                        # [B,S,H]
-    X = u.reshape(Bsz, S, H, P_HEAD) * dt[..., None].to(u.dtype)
+    X = split_ready(u, -1, H).reshape(Bsz, S, H, P_HEAD) * dt[..., None].to(u.dtype)
 
     y = _ssd_chunked(X, B_, C_, lamb, chunk)
-    y = y + u.reshape(Bsz, S, H, P_HEAD).to(y.dtype) * p["D_skip"][None, None, :, None]
+    y = y + split_ready(u, -1, H).reshape(Bsz, S, H, P_HEAD).to(y.dtype) * p["D_skip"][None, None, :, None]
     y = y.reshape(Bsz, S, d_in).to(x.dtype) * F.silu(z)
     return y @ p["out_proj"].to(x.dtype)
 
@@ -161,10 +162,10 @@ def decode_mamba(cfg: ModelConfig, p, x, state):
     dt = _dt(p, u)[:, 0]                                                 # [B,H]
     a = -torch.exp(p["A_log"])
     alpha = torch.exp(dt * a)                                            # [B,H]
-    Xt = u.reshape(Bsz, H, P_HEAD).float() * dt[..., None]
+    Xt = split_ready(u, -1, H).reshape(Bsz, H, P_HEAD).float() * dt[..., None]
     h = alpha[..., None, None] * state["h"] + torch.einsum("bn,bhp->bhnp", B_, Xt)
     y = torch.einsum("bn,bhnp->bhp", C_, h)
-    y = y + u.reshape(Bsz, H, P_HEAD).float() * p["D_skip"][None, :, None]
+    y = y + split_ready(u, -1, H).reshape(Bsz, H, P_HEAD).float() * p["D_skip"][None, :, None]
     y = y.reshape(Bsz, 1, d_in).to(x.dtype) * F.silu(z)
     out = y @ p["out_proj"].to(x.dtype)
     return out, {"h": h, "conv": conv_state}

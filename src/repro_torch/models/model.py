@@ -1,15 +1,17 @@
 """Family dispatch: one API over the port's whole model zoo.
 
-    init_fn(cfg, generator)                        -> params (DecoderLM | EncDecLM)
+    init_fn(cfg, generator, device, V)             -> params (DecoderLM | EncDecLM)
     loss_fn(cfg, params, batch, ctx)               -> scalar (train objective)
     prefill_fn(cfg, params, batch, ctx)            -> last-position logits
                                                       (whisper: memory K/V)
-    init_cache(cfg, batch, max_len, device)        -> decode cache
+    init_cache(cfg, batch, max_len, device, V)     -> decode cache
     decode_fn(cfg, params, tokens, cache, pos, ctx) -> (logits, cache)
     input_specs(cfg, seq_len, global_batch, mode)  -> meta-tensor stand-ins
     scan_trip_hints(cfg, seq_len, mode)            -> while-loop trip counts
 
-The port of ``repro/models/model.py``, every family on one device.
+The port of ``repro/models/model.py``: every family, on one device or,
+under a ``ShardCtx`` with a mesh, as eager SPMD on DTensor params and
+inputs (``launch/shardings.py`` places them).
 ``loss_fn`` is differentiable (grad mode follows the caller, as the
 reference's ``loss_fn`` is a plain function that ``jax.value_and_grad``
 differentiates; ``train/train_step.py``); the serving entry points run
@@ -24,26 +26,30 @@ from . import transformer as tfm
 from . import whisper as wsp
 from .config import ModelConfig
 from .layers import CDTYPE
-from .sharding import ShardCtx
+from .sharding import ShardCtx, on_mesh
 
 
-def init_fn(cfg: ModelConfig, generator: torch.Generator | int = 0, device=None):
+def init_fn(cfg: ModelConfig, generator: torch.Generator | int = 0, device=None,
+            V: int = 1):
     """Random params drawn from ``generator`` (a ``torch.Generator`` on the
     target device, or an int seed for one made on ``device``; ``None`` =
-    the card, which must exist)."""
+    the card, which must exist). ``V``: the MoE's virtual expert shards
+    (the model axis' size; ``moe.moe_layout``)."""
     if not isinstance(generator, torch.Generator):
         generator = torch.Generator(device=resolve_device(device)).manual_seed(generator)
     if cfg.is_encoder_decoder:
         return wsp.init_params(cfg, generator)
-    return tfm.init_params(cfg, generator)
+    return tfm.init_params(cfg, generator, V=V)
 
 
 def loss_fn(cfg: ModelConfig, params, batch, ctx: ShardCtx | None = None):
     """Mean next-token cross-entropy (f32 scalar) of ``batch`` (``tokens``,
-    ``labels``; ``frames`` or ``patch_embeds`` for the stub frontends)."""
-    if cfg.is_encoder_decoder:
-        return wsp.seq2seq_loss(cfg, params, batch, ctx)
-    return tfm.lm_loss(cfg, params, batch, ctx)
+    ``labels``; ``frames`` or ``patch_embeds`` for the stub frontends).
+    Under a mesh ctx it is a replicated DTensor scalar."""
+    with on_mesh(ctx):
+        if cfg.is_encoder_decoder:
+            return wsp.seq2seq_loss(cfg, params, batch, ctx)
+        return tfm.lm_loss(cfg, params, batch, ctx)
 
 
 @torch.no_grad()
@@ -51,12 +57,15 @@ def prefill_fn(cfg: ModelConfig, params, batch, ctx: ShardCtx | None = None):
     """``batch["tokens"]`` [B, S] int -> last-position logits [B, 1, V];
     for the encoder-decoder ``batch["frames"]`` [B, T, D] -> the decoder's
     cross-attention K/V, each [L, B, T, Hkv, Dh]."""
-    if cfg.is_encoder_decoder:
-        return wsp.prefill_memory(cfg, params, batch["frames"], ctx)
-    return tfm.prefill(cfg, params, batch, ctx)
+    with on_mesh(ctx):
+        if cfg.is_encoder_decoder:
+            return wsp.prefill_memory(cfg, params, batch["frames"], ctx)
+        return tfm.prefill(cfg, params, batch, ctx)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None, V: int = 1):
+    """The decode cache (``V`` is the reference's argument; no cache leaf
+    depends on it)."""
     dev = resolve_device(device)
     if cfg.is_encoder_decoder:
         cache = wsp.init_cache(cfg, batch, min(max_len, cfg.max_target_len), device=dev)
@@ -73,9 +82,10 @@ def decode_fn(cfg: ModelConfig, params, tokens, cache, pos: int,
               ctx: ShardCtx | None = None):
     """tokens [B, 1] at position ``pos`` -> (logits [B, 1, V], cache); the
     cache is updated in place."""
-    if cfg.is_encoder_decoder:
-        return wsp.decode_step(cfg, params, tokens, cache, int(pos), ctx)
-    return tfm.decode_step(cfg, params, tokens, cache, int(pos), ctx)
+    with on_mesh(ctx):
+        if cfg.is_encoder_decoder:
+            return wsp.decode_step(cfg, params, tokens, cache, int(pos), ctx)
+        return tfm.decode_step(cfg, params, tokens, cache, int(pos), ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,16 @@
-"""The context threaded through the port's models: one device, no mesh.
+"""The sharding context threaded through the port's models.
 
-The reference's ``ShardCtx`` (``repro/models/sharding.py``) carries a mesh,
-its axis names and a set of knobs. On one card the mesh has one device, so
-the port keeps the knobs that change what its prefill, decode and training
-run there and makes ``constrain`` the identity. Sharding over several
-devices (a mesh, ``attn_seq_shard``, expert parallelism) is ROADMAP.md,
-Queue 1, item 10, "``launch/``", and raises here.
+The port of ``repro/models/sharding.py``. Models are written
+sharding-agnostic; a ``ShardCtx`` (or ``None`` on one device) supplies the
+mesh, its axis names and the knobs. Sharded execution is eager SPMD on
+DTensor: the mesh is a ``torch.distributed.device_mesh.DeviceMesh`` whose
+dimension names are the reference's axis names (``"data"``, ``"model"``,
+``"pod"``), a param or an activation is a ``DTensor``, a spec is the
+reference's ``PartitionSpec`` as a tuple (one entry per tensor dim: ``None``,
+an axis name, or a tuple of axis names, major first), and ``constrain`` is
+``DTensor.redistribute`` to the placements the spec names
+(``spec_placements``). Under a ``None`` mesh, or on a plain tensor,
+``constrain`` is the identity, so the one-device path is unchanged.
 
 ``remat`` is the reference's training knob: the training loss recomputes
 each layer (``transformer.backbone``: an xLSTM layer, a hybrid super-block,
@@ -19,6 +24,7 @@ measure what remat saves. It changes no value, only memory and time.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -27,27 +33,169 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    use_flash: bool = False        # attention through the flash kernel
-    # (kernels/flashattn.py): no [B, H, S, S] logits in device memory
+    mesh: object = None            # DeviceMesh, or None: one device
+    batch_axes: tuple[str, ...] = ("data",)   # ('pod', 'data') multi-pod
+    model_axis: str = "model"
     bf16_attn: bool = False        # QK^T and RoPE in the compute dtype
+    remat: str = "full"            # full | dots | none (see the docstring)
+    weight_mode: str = "fsdp"      # fsdp | tp2d | seqpar (launch/shardings.py)
     cast_params_once: bool = False  # cast each block's f32 params to bf16
     # before it runs (the reference does it before the layer scan)
+    attn_seq_shard: bool = False   # shard attention over the query sequence
+    # (context parallelism) instead of heads
+    use_flash: bool = False        # attention through the flash kernel
+    # (kernels/flashattn.py): no [B, H, S, S] logits in device memory
     slstm_chunk: int = 1           # sLSTM timesteps per scan iteration of
     # the reference; the port steps one position at a time whatever it is
-    remat: str = "full"            # full | dots | none (see the docstring)
-    attn_seq_shard: bool = False   # context parallelism: needs a mesh
-    mesh: object = None
 
     def __post_init__(self):
         if self.remat not in ("full", "dots", "none"):
             raise ValueError(f"remat must be 'full', 'dots' or 'none', got {self.remat!r}")
-        if self.mesh is not None or self.attn_seq_shard:
-            raise NotImplementedError(
-                "repro_torch runs on one device: meshes and attn_seq_shard are "
-                "ROADMAP.md, Queue 1, item 10, 'launch/'")
+        if self.mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(self.mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a DeviceMesh, got {type(self.mesh).__name__}")
+        elif self.attn_seq_shard:
+            raise ValueError("attn_seq_shard shards over the model axis: it needs a mesh")
+
+    def axis_size(self, name: str) -> int:
+        return axis_size(self.mesh, name)
+
+    @property
+    def model_size(self) -> int:
+        return self.axis_size(self.model_axis)
+
+    @property
+    def batch_size(self) -> int:
+        out = 1
+        for a in self.batch_axes:
+            out *= self.axis_size(a)
+        return out
 
     def constrain(self, x, *spec):
+        if self.mesh is None or not is_dtensor(x):
+            return x
+        return x.redistribute(self.mesh, spec_placements(spec, self.mesh))
+
+
+def axis_size(mesh, name: str) -> int:
+    """The size of mesh axis ``name`` (1 for a ``None`` mesh)."""
+    if mesh is None:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(name))
+
+
+def mesh_coord(mesh, name: str) -> int:
+    """This rank's coordinate on mesh axis ``name`` (a host int, so it
+    traces as a constant)."""
+    return int(mesh.get_coordinate()[mesh.mesh_dim_names.index(name)])
+
+
+def chunk_offset(mesh, dims, size: int) -> int:
+    """This rank's first index along a dim of ``size`` sharded over the mesh
+    dims ``dims``, major first (DTensor's shards are nested ``torch.chunk``s)."""
+    coord, off = mesh.get_coordinate(), 0
+    for i in dims:
+        chunk = -(-size // mesh.size(i))
+        start = min(int(coord[i]) * chunk, size)
+        off, size = off + start, min(chunk, size - start)
+    return off
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def spec_placements(spec, mesh) -> list:
+    """The DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` on each
+    mesh dim that tensor dim ``d`` names, ``Replicate()`` on the others.
+    A tensor dim over several axes names them major first, which is the
+    order DTensor shards them in (mesh-dim order), so another order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} is not in mesh order {tuple(names)}")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"mesh axis {names[i]!r} shards two dims of spec {spec}")
+            out[i] = Shard(d)
+    return out
+
+
+def split_ready(x, dim: int, n: int):
+    """``x`` ready for its dim ``dim`` to be split into (n, rest): on a
+    DTensor whose shards of that dim the n groups do not divide evenly,
+    those mesh axes are gathered first (identity otherwise)."""
+    if not is_dtensor(x):
         return x
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.ndim
+    axes = [i for i, p in enumerate(x.placements) if p == Shard(dim)]
+    size = 1
+    for i in axes:
+        size *= x.device_mesh.size(i)
+    if n % size == 0:
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if i in axes else p
+                                          for i, p in enumerate(x.placements)])
+
+
+class _SumOverAxes(torch.autograd.Function):
+    """All-reduce (sum) a local tensor over process groups, with the
+    identity as its backward: the sum is replicated, and every rank holds
+    the same gradient of it (Megatron's "g")."""
+
+    @staticmethod
+    def forward(ctx, x, *groups):
+        c10d = torch.ops._c10d_functional
+        for g in groups:
+            x = c10d.wait_tensor(c10d.all_reduce(x, "sum", g))
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad,) + (None,) * len(ctx.needs_input_grad[1:])
+
+
+def sum_over(x, mesh, dims):
+    """``x`` (a local tensor inside ``local_map``) summed over the mesh
+    dims ``dims``, differentiably (``_SumOverAxes``)."""
+    groups = [mesh.get_group(i).group_name for i in dims]
+    return _SumOverAxes.apply(x, *groups) if groups else x
+
+
+def constrain(ctx: ShardCtx | None, x, *spec):
+    if ctx is None:
+        return x
+    return ctx.constrain(x, *spec)
+
+
+def batch_spec(ctx: ShardCtx | None):
+    if ctx is None or not ctx.batch_axes:
+        return None
+    return tuple(ctx.batch_axes) if len(ctx.batch_axes) > 1 else ctx.batch_axes[0]
+
+
+def on_mesh(ctx: ShardCtx | None):
+    """The context a sharded forward runs in: under a mesh, plain tensors
+    made inside the model (masks, RoPE angles, positions) join DTensor ops
+    as replicated (``implicit_replication``, whose exit switches it off, so
+    a nested entry, as the backward of a forward that entered it, is a
+    no-op); else nothing."""
+    if ctx is None or ctx.mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    if getattr(DTensor._op_dispatcher, "_allow_implicit_replication", False):
+        return contextlib.nullcontext()
+    return implicit_replication()
 
 
 def _save_products(ctx, op, *args, **kwargs):

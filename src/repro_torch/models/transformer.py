@@ -30,7 +30,7 @@ from .config import ModelConfig
 from .layers import (CDTYPE, apply_mlp, apply_norm, embed_params, embed_tokens,
                      mlp_params, norm_params, param, softmax_xent, unembed)
 from .moe import apply_moe, moe_params
-from .sharding import ShardCtx, remat as _remat
+from .sharding import ShardCtx, batch_spec, constrain, remat as _remat
 
 
 def _split_kind(kind: str) -> tuple[str, str]:
@@ -44,7 +44,7 @@ class Block(nn.ModuleDict):
     ``mlstm`` or ``slstm``) and the feed-forward's (``mlp`` or ``moe``), as
     the reference's ``_block_params``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, generator=None, device=None, V: int = 1):
         mixer, ff = _split_kind(kind)
         make_mixer = {"attn": attn.attn_params, "mamba": mb.mamba_params,
                       "mlstm": xl.mlstm_params, "slstm": xl.slstm_params}
@@ -54,7 +54,7 @@ class Block(nn.ModuleDict):
         if ff == "mlp":
             groups["mlp"] = mlp_params(cfg, generator, device)
         elif ff == "moe":
-            groups["moe"] = moe_params(cfg, generator, device)
+            groups["moe"] = moe_params(cfg, generator, device, V=V)
         super().__init__(groups)
 
 
@@ -62,9 +62,10 @@ class DecoderLM(nn.Module):
     """The params of a decoder-only LM: ``embed`` (``tok``, ``out``),
     ``final_norm``, the layers (see the module docstring) and, for the
     vision stub, ``patch_proj``. Drawn from ``generator`` on its device, or
-    left uninitialised on ``device`` when ``generator`` is None."""
+    left uninitialised on ``device`` when ``generator`` is None. ``V``: the
+    MoE's virtual expert shards (``moe.moe_layout``)."""
 
-    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, generator=None, device=None, V: int = 1):
         super().__init__()
         if cfg.is_encoder_decoder:
             raise ValueError(f"{cfg.name} is an encoder-decoder: see whisper.EncDecLM")
@@ -75,14 +76,14 @@ class DecoderLM(nn.Module):
         kinds = cfg.layer_kinds()
         if cfg.family == "hybrid":
             self.blocks = nn.ModuleList(
-                nn.ModuleDict({f"sub{i}": Block(cfg, kind, generator, device)
+                nn.ModuleDict({f"sub{i}": Block(cfg, kind, generator, device, V)
                                for i, kind in enumerate(kinds)})
                 for _ in range(cfg.num_layers // cfg.attn_period))
         elif cfg.family == "ssm":
             for i, kind in enumerate(kinds):
-                self.add_module(f"layer{i}", Block(cfg, kind, generator, device))
+                self.add_module(f"layer{i}", Block(cfg, kind, generator, device, V))
         else:
-            self.blocks = nn.ModuleList(Block(cfg, kinds[0], generator, device)
+            self.blocks = nn.ModuleList(Block(cfg, kinds[0], generator, device, V)
                                         for _ in range(cfg.num_layers))
         if cfg.frontend == "vision_stub":   # stub projector
             self.patch_proj = param(torch.eye(cfg.d_model, dtype=torch.float32, device=dev))
@@ -98,8 +99,8 @@ class DecoderLM(nn.Module):
         return list(self.blocks)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> DecoderLM:
-    return DecoderLM(cfg, generator)
+def init_params(cfg: ModelConfig, generator: torch.Generator, V: int = 1) -> DecoderLM:
+    return DecoderLM(cfg, generator, V=V)
 
 
 def cast_matrices(params: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -134,7 +135,12 @@ def _cast_block(p: nn.Module) -> dict:
     return {name: _cast_block(sub) for name, sub in p.items()}
 
 
+def _seq_ax(ctx: ShardCtx | None):
+    return "model" if (ctx is not None and ctx.attn_seq_shard) else None
+
+
 def _apply_block(cfg: ModelConfig, p, x, kind: str, ctx: ShardCtx | None):
+    bs, sq = batch_spec(ctx), _seq_ax(ctx)
     mixer, ff = _split_kind(kind)
     h = apply_norm(cfg, p["norm1"], x)
     if mixer == "attn":
@@ -149,12 +155,12 @@ def _apply_block(cfg: ModelConfig, p, x, kind: str, ctx: ShardCtx | None):
                              time_chunk=(ctx.slstm_chunk if ctx else 1))
     else:
         raise ValueError(kind)
-    x = x + out
+    x = x + constrain(ctx, out, bs, sq, None)
     if ff == "none":
         return x
     h = apply_norm(cfg, p["norm2"], x)
     out = apply_moe(cfg, p["moe"], h, ctx) if ff == "moe" else apply_mlp(cfg, p["mlp"], h)
-    return x + out
+    return x + constrain(ctx, out, bs, sq, None)
 
 
 def backbone(cfg: ModelConfig, params: DecoderLM, x, ctx: ShardCtx | None,
@@ -163,6 +169,7 @@ def backbone(cfg: ModelConfig, params: DecoderLM, x, ctx: ShardCtx | None,
     super-block) is recomputed in the backward pass as ``ctx.remat`` says."""
     kinds = cfg.layer_kinds()
     cast = ctx is not None and ctx.cast_params_once and cfg.family != "ssm"
+    x = constrain(ctx, x, batch_spec(ctx), _seq_ax(ctx), None)
 
     def layer_fn(i, layer):
         def run(h):
@@ -202,6 +209,10 @@ def lm_loss(cfg: ModelConfig, params: DecoderLM, batch, ctx: ShardCtx | None = N
         h = h[:, -S_txt:, :]   # loss over text positions
         mask = mask[:, -S_txt:]
     logits = unembed(cfg, params.embed, h)
+    if _seq_ax(ctx):
+        logits = constrain(ctx, logits, batch_spec(ctx), "model", None)
+    else:
+        logits = constrain(ctx, logits, batch_spec(ctx), None, "model")
     return softmax_xent(logits, batch["labels"], mask)
 
 
@@ -247,7 +258,8 @@ def _decode_block(cfg: ModelConfig, p, x, kind: str, cache, pos: int, ctx):
     mixer, ff = _split_kind(kind)
     h = apply_norm(cfg, p["norm1"], x)
     if mixer == "attn":
-        out, _, _ = attn.decode_attention(cfg, p["attn"], h, cache["k"], cache["v"], pos)
+        out, _, _ = attn.decode_attention(cfg, p["attn"], h, cache["k"], cache["v"], pos,
+                                          ctx)
     else:
         step = {"mamba": mb.decode_mamba, "mlstm": xl.decode_mlstm,
                 "slstm": xl.decode_slstm}[mixer]
@@ -271,7 +283,9 @@ def decode_step(cfg: ModelConfig, params: DecoderLM, tokens, cache, pos: int,
     """tokens [B,1] -> (logits [B,1,V], cache). ``pos`` is the position of
     ``tokens``; the cache is updated in place."""
     kinds = cfg.layer_kinds()
-    x = embed_tokens(params.embed, tokens)
+    # batch-sharded rows under a mesh (XLA propagates the tokens' sharding;
+    # DTensor's embedding rule would leave them partial)
+    x = constrain(ctx, embed_tokens(params.embed, tokens), batch_spec(ctx), None, None)
     for j, layer in enumerate(params.layers()):
         if cfg.family == "ssm":
             x = _decode_block(cfg, layer, x, kinds[j], cache[f"layer{j}"], pos, ctx)

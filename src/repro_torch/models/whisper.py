@@ -20,7 +20,7 @@ from . import attention as attn
 from .config import ModelConfig
 from .layers import (CDTYPE, apply_mlp, apply_norm, dense_init, embed_params,
                      embed_tokens, mlp_params, norm_params, softmax_xent, unembed)
-from .sharding import ShardCtx, remat
+from .sharding import ShardCtx, batch_spec, constrain, remat, split_ready
 
 
 def _enc_block_params(cfg: ModelConfig, generator=None, device=None) -> nn.ModuleDict:
@@ -81,14 +81,16 @@ def _positions(table, n: int):
 
 def encode(cfg: ModelConfig, params: EncDecLM, frames, ctx: ShardCtx | None = None):
     """frames [B, T, D] (stub conv output) -> encoder states [B, T, D]."""
+    bs = batch_spec(ctx)
     x = frames.to(CDTYPE) + _positions(params.pos_enc, frames.shape[1])[None]
+    x = constrain(ctx, x, bs, None, None)
 
     def layer(p, h):
         a = apply_norm(cfg, p["norm1"], h)
         out, _ = attn.self_attention(cfg, p["attn"], a, causal=False)
-        h = h + out
+        h = h + constrain(ctx, out, bs, None, None)
         a = apply_norm(cfg, p["norm2"], h)
-        return h + apply_mlp(cfg, p["mlp"], a)
+        return h + constrain(ctx, apply_mlp(cfg, p["mlp"], a), bs, None, None)
     for p in params.enc:
         x = remat(ctx, layer, p, x)
     return apply_norm(cfg, params.enc_norm, x)
@@ -97,26 +99,31 @@ def encode(cfg: ModelConfig, params: EncDecLM, frames, ctx: ShardCtx | None = No
 def _memory_kv(cfg: ModelConfig, p, memory):
     """One decoder layer's cross-attention K/V of the encoder states."""
     B, T, _ = memory.shape
-    mk = (memory @ p["xattn"]["wk"].to(memory.dtype)).reshape(
-        B, T, cfg.num_kv_heads, cfg.head_dim)
-    mv = (memory @ p["xattn"]["wv"].to(memory.dtype)).reshape(
-        B, T, cfg.num_kv_heads, cfg.head_dim)
+    mk = split_ready(memory @ p["xattn"]["wk"].to(memory.dtype), -1, cfg.num_kv_heads
+                     ).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    mv = split_ready(memory @ p["xattn"]["wv"].to(memory.dtype), -1, cfg.num_kv_heads
+                     ).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     return mk, mv
 
 
 def decode_train(cfg: ModelConfig, params: EncDecLM, tokens, memory,
                  ctx: ShardCtx | None = None):
     """Teacher-forced decoder. tokens [B,S]; memory [B,T,D]."""
+    bs = batch_spec(ctx)
     x = embed_tokens(params.embed, tokens) + _positions(params.pos_dec, tokens.shape[1])[None]
+    # the embedding's rows come batch-sharded (XLA propagates the tokens'
+    # sharding; DTensor's embedding rule would shard the rows otherwise)
+    x = constrain(ctx, x, bs, None, None)
 
     def layer(p, h, mem):
         a = apply_norm(cfg, p["norm1"], h)
         out, _ = attn.self_attention(cfg, p["attn"], a, causal=True)
-        h = h + out
+        h = h + constrain(ctx, out, bs, None, None)
         a = apply_norm(cfg, p["norm2"], h)
-        h = h + attn.cross_attention(cfg, p["xattn"], a, _memory_kv(cfg, p, mem))
+        out = attn.cross_attention(cfg, p["xattn"], a, _memory_kv(cfg, p, mem))
+        h = h + constrain(ctx, out, bs, None, None)
         a = apply_norm(cfg, p["norm3"], h)
-        return h + apply_mlp(cfg, p["mlp"], a)
+        return h + constrain(ctx, apply_mlp(cfg, p["mlp"], a), bs, None, None)
     for p in params.dec:
         x = remat(ctx, layer, p, x, memory)
     return apply_norm(cfg, params.final_norm, x)
@@ -126,7 +133,8 @@ def seq2seq_loss(cfg: ModelConfig, params: EncDecLM, batch, ctx: ShardCtx | None
     """batch: frames [B,T,D] (stub), tokens [B,S], labels [B,S]."""
     memory = encode(cfg, params, batch["frames"], ctx)
     h = decode_train(cfg, params, batch["tokens"], memory, ctx)
-    return softmax_xent(unembed(cfg, params.embed, h), batch["labels"])
+    logits = constrain(ctx, unembed(cfg, params.embed, h), batch_spec(ctx), None, "model")
+    return softmax_xent(logits, batch["labels"])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
@@ -153,11 +161,12 @@ def decode_step(cfg: ModelConfig, params: EncDecLM, tokens, cache, pos: int,
     self-attention cache is written in place."""
     row = min(max(pos, 0), cfg.max_target_len - 1)
     x = embed_tokens(params.embed, tokens) + params.pos_dec[row:row + 1].to(CDTYPE)[None]
+    x = constrain(ctx, x, batch_spec(ctx), None, None)   # as decode_train's
     mk, mv = cache["mem_kv"]
     for j, p in enumerate(params.dec):
         a = apply_norm(cfg, p["norm1"], x)
         out, _, _ = attn.decode_attention(cfg, p["attn"], a, cache["self"]["k"][j],
-                                          cache["self"]["v"][j], pos)
+                                          cache["self"]["v"][j], pos, ctx)
         x = x + out
         a = apply_norm(cfg, p["norm2"], x)
         x = x + attn.decode_cross_attention(cfg, p["xattn"], a, (mk[j], mv[j]))

@@ -28,7 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..models.convert import reference_leaf, to_reference_tree
+from ..models.convert import host_array, reference_leaf, to_reference_tree
 from .optimizer import OptState
 
 
@@ -107,10 +107,9 @@ def _pack_int(i: int, out: bytearray) -> None:
 
 
 def _host(x) -> np.ndarray:
-    # a copy: the step after a save updates the tensors in place
-    if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
-    return np.asarray(x)
+    # a copy: the step after a save updates the tensors in place (a DTensor
+    # is gathered whole first)
+    return host_array(x)
 
 
 def _as_tree(tree):
@@ -148,7 +147,12 @@ def _restore_into(template, flat: dict[str, np.ndarray]):
                 if tuple(a.shape) != tuple(t.shape):
                     raise ValueError(f"shape mismatch for {name}: ckpt {a.shape} vs model "
                                      f"{tuple(t.shape)}")
-                t.copy_(torch.as_tensor(a).to(t.dtype))
+                src = torch.as_tensor(a).to(t.dtype)
+                if hasattr(t, "device_mesh"):   # a DTensor keeps its placements
+                    from torch.distributed.tensor import distribute_tensor
+                    src = distribute_tensor(src.to(t.device_mesh.device_type), t.device_mesh,
+                                            t.placements, src_data_rank=None)
+                t.copy_(src)
 
     if isinstance(template, torch.nn.Module):
         fill(dict(template.named_parameters()), "")
@@ -161,6 +165,27 @@ def _restore_into(template, flat: dict[str, np.ndarray]):
         return OptState(torch.as_tensor(flat[".step"].astype(np.int32)).to(template.step.device),
                         template.mu, template.nu)
     raise TypeError(f"cannot restore into a {type(template).__name__}: a model or an OptState")
+
+
+def _replace(state, shardings: dict):
+    """``state`` (a model or an ``OptState``) with the tensors ``shardings``
+    names distributed as it says."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def place(t, sh):
+        return distribute_tensor(t.detach(), sh.mesh, list(sh.placements), src_data_rank=None)
+    if isinstance(state, torch.nn.Module):
+        from ..models.transformer import set_param
+        for name, w in list(state.named_parameters()):
+            if name in shardings:
+                set_param(state, name, torch.nn.Parameter(place(w, shardings[name]),
+                                                          requires_grad=w.requires_grad))
+        return state
+    if isinstance(state, OptState):
+        mu, nu = ({k: place(t, shardings[k]) if k in shardings else t for k, t in d.items()}
+                  for d in (state.mu, state.nu))
+        return OptState(state.step, mu, nu)
+    raise TypeError(f"cannot re-place a {type(state).__name__}")
 
 
 def _unflatten(flat: dict[str, np.ndarray], prefix: str) -> dict:
@@ -238,10 +263,15 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, templates: dict[str, Any]) -> dict[str, Any]:
+    def restore(self, step: int, templates: dict[str, Any],
+                shardings: dict[str, Any] | None = None) -> dict[str, Any]:
         """The saved state of ``step``, written into ``templates``' tensors
         (on their devices, in their dtypes): a model or an ``OptState`` per
-        name."""
+        name. ``shardings`` optionally re-places a name's tensors on a mesh
+        (elastic restart under a new mesh): ``{name: {parameter name:
+        Sharding}}`` (``launch.shardings.param_shardings``), applied to a
+        model's parameters or an ``OptState``'s moments; each rank keeps
+        its shards of the restored values."""
         npz_path, _ = self._paths(step)
         with np.load(npz_path) as data:
             out = {}
@@ -249,4 +279,6 @@ class Checkpointer:
                 flat = {k.split("::", 1)[1]: data[k] for k in data.files
                         if k.startswith(f"{name}::")}
                 out[name] = _restore_into(template, flat)
+                if shardings and shardings.get(name) is not None:
+                    out[name] = _replace(out[name], shardings[name])
         return out

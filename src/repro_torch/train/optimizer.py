@@ -10,6 +10,10 @@ step, and ``new_p = p - lr * (mh / (sqrt(vh) + eps) + wd * p)``.
 ``torch.optim.AdamW`` is not used: it decays the weights in another order
 and has no schedule or clip.
 
+A sharded state (DTensor params, each moment placed as its param) takes
+the same elementwise update shard by shard; only ``global_norm`` reduces
+across ranks.
+
 The update writes the new params, ``mu`` and ``nu`` into the given tensors
 (the reference returns new trees; on one card a second copy of 3.6 B f32
 params would not fit beside the first) and returns them.
@@ -90,9 +94,25 @@ def _power(b: float, step: int) -> np.float32:
 
 
 def global_norm(grads: dict) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's summed squares (f32)."""
+    """sqrt of the sum over leaves of each leaf's summed squares (f32).
+    DTensor leaves (a sharded state) sum their shards: each leaf's sum of
+    squares is a partial over its sharded axes, the leaves are added in
+    order and reduced once, and the norm is replicated."""
+    from ..models.sharding import is_dtensor
+    if any(is_dtensor(g) for g in grads.values()):
+        total = None
+        for g in grads.values():
+            s = g.float().square().sum()
+            total = s if total is None else total + s
+        return torch.sqrt(total.redistribute(total.device_mesh,
+                                             _replicate(total.device_mesh)))
     sums = [xla_sum(g.float().square().reshape(-1)) for g in grads.values()]
     return torch.sqrt(xla_sum(torch.stack(sums)))
+
+
+def _replicate(mesh) -> list:
+    from torch.distributed.tensor import Replicate
+    return [Replicate()] * mesh.ndim
 
 
 @torch.no_grad()

@@ -7,8 +7,11 @@ layer recomputed in the backward pass as ``ctx.remat`` says, then
 ``torch.autograd.grad`` over every parameter. A parameter the loss never
 reaches (xLSTM layers without a feed-forward keep an unused ``norm2``)
 gets a zero gradient, as JAX gives, so AdamW still decays it. Attention
-runs through ``_sdpa``: the reference's train step takes ``ctx=None``, and
-its flash kernel has no backward either.
+runs through ``_sdpa``: the flash kernel has no backward, in either
+package. Under a mesh ctx the params, the moments and the batch are
+DTensors (``launch/shardings.py`` places them) and the same step runs as
+eager SPMD: gradients are reduced to their params' placements, AdamW is
+elementwise per shard, and ``global_norm`` sums over shards.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..models.convert import params_from_jax, reference_leaf
-from ..models.sharding import ShardCtx
+from ..models.sharding import ShardCtx, is_dtensor, on_mesh
 from .optimizer import AdamWConfig, OptState, adamw_update, init_opt_state
 
 
@@ -37,10 +40,11 @@ def train_state(params: torch.nn.Module) -> TrainState:
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator | int = 0,
-                     device=None) -> TrainState:
+                     device=None, V: int = 1) -> TrainState:
     """``init_fn``'s params from ``generator`` (or an int seed on
-    ``device``; ``None`` = the card) and a zero optimizer state."""
-    return train_state(M.init_fn(cfg, generator, device))
+    ``device``; ``None`` = the card) and a zero optimizer state; ``V`` the
+    MoE's virtual expert shards."""
+    return train_state(M.init_fn(cfg, generator, device, V=V))
 
 
 def train_state_from_jax(cfg: ModelConfig, params, opt=None, device=None) -> TrainState:
@@ -62,13 +66,20 @@ def train_state_from_jax(cfg: ModelConfig, params, opt=None, device=None) -> Tra
 def loss_and_grads(cfg: ModelConfig, params: torch.nn.Module, batch,
                    ctx: ShardCtx | None = None):
     """(loss, {name: grad}) of ``loss_fn`` at ``params``; a param the loss
-    never reaches gets zeros."""
+    never reaches gets zeros. Under a mesh ctx (DTensor params) each
+    gradient is placed as its param (the reduce-scatter / all-reduce of the
+    partial sums) and the loss is a replicated DTensor scalar."""
     named = dict(params.named_parameters())
-    with torch.enable_grad():
+    with torch.enable_grad(), on_mesh(ctx):
         loss = M.loss_fn(cfg, params, batch, ctx)
         grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
-    return loss.detach(), {k: (g if g is not None else torch.zeros_like(w))
-                           for (k, w), g in zip(named.items(), grads)}
+        out = {}
+        for (k, w), g in zip(named.items(), grads):
+            g = g if g is not None else torch.zeros_like(w)
+            if is_dtensor(g) and tuple(g.placements) != tuple(w.placements):
+                g = g.redistribute(w.device_mesh, w.placements)
+            out[k] = g
+    return loss.detach(), out
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, ctx: ShardCtx | None = None):
@@ -77,7 +88,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, ctx: ShardCtx | None
 
     def train_step(state: TrainState, batch):
         loss, grads = loss_and_grads(cfg, state.params, batch, ctx)
-        params, opt, metrics = adamw_update(opt_cfg, grads, state.opt, state.params)
+        with on_mesh(ctx):
+            params, opt, metrics = adamw_update(opt_cfg, grads, state.opt, state.params)
         return TrainState(params, opt), {"loss": loss, **metrics}
 
     return train_step

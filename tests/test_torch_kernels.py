@@ -293,9 +293,13 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.launch.train, repro_torch.data.pipeline, "
             "repro_torch.train.optimizer, repro_torch.train.train_step, "
             "repro_torch.train.checkpoint, repro_torch.train.compression, "
-            "repro_torch.train.fault_tolerance; "
+            "repro_torch.train.fault_tolerance, repro_torch.launch.shardings, "
+            "repro_torch.launch.dryrun, repro_torch.models.sharding, repro_torch.models.moe; "
             "[repro_torch.configs.registry.get_config(a) for a in "
             "repro_torch.configs.registry.ARCHS]; "
+            "repro_torch.launch.dryrun.ensure_fake_world(256); "
+            "repro_torch.launch.mesh.make_production_mesh(device_type='cpu'); "
+            "repro_torch.launch.mesh.stop_world(); "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -450,6 +450,7 @@ def test_driver_resumes_after_a_failure(tmp_path, capsys):
     assert "[restore] resumed from step 4" in log and "[done] final loss" in log
     assert out["final_loss"] < out["first_loss"]
     assert Checkpointer(str(tmp_path / "run")).latest_step() == 12
-    for bad in (["--mesh", "pod1"], ["--device-order", "sharedmap"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    for bad, size in ((["--mesh", "pod1"], 256),
+                      (["--mesh", "pod2", "--device-order", "sharedmap"], 512)):
+        with pytest.raises(RuntimeError, match=f"world size {size}; none is initialized"):
             launch_train.main(["--smoke", "--device", "cpu"] + bad)
