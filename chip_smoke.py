@@ -169,21 +169,29 @@
     ``full`` step profiled (device busy share, top ops).
 14. The multi-device ``launch/`` pieces (run after phase 12, before the
     kernels line). (a) A worker process started after the build (CUDA
-    hidden) records the dry-run of llama3.2-3b x train_4k and
-    moonshot-v1-16b-a3b x decode_32k on the pod1 mesh (``launch.dryrun``:
-    meta DTensors on a fake world of 256 ranks, one rank's step recorded):
-    host seconds, argument/output bytes (held equal to the reference's
-    fixture where ``tests/data/dryrun`` has one), FLOPs and collectives per
-    device. (b) llama's per-rank graph mapped on 16:16, fast, under ell and
-    xla on the card (the five mapping kernels launch), ``pe_of`` equal to
-    the worker's CPU runs, J against the default placement. (c) One MoE
+    hidden) records the dry-run of llama3.2-3b x train_4k and decode_32k,
+    moonshot-v1-16b-a3b x decode_32k, qwen2-72b x prefill_32k and
+    jamba-v0.1-52b x prefill_32k on the pod1 mesh (``launch.dryrun``: meta
+    DTensors on a fake world of 256 ranks, one rank's step recorded): host
+    seconds, argument/output bytes (held equal to the reference's fixture
+    where ``tests/data/dryrun`` has one), FLOPs per device (over the
+    fixture's, held within 2% of the ratio ``flops_ratio.json`` gives;
+    ``useful_ratio`` at most 1) and each cell's five largest products,
+    collectives per device. (b) llama's per-rank graph mapped on
+    16:16, fast, under ell and xla on the card (the five mapping kernels
+    launch), ``pe_of`` equal to the worker's CPU runs, J against the
+    default placement. (c) One MoE
     layer of moonshot (64 experts, top-6) and of mixtral-8x22b (8 experts,
     so each split into two d_ff shards) at full width: its 16 virtual
     shards run one after another and summed in shard order against V = 1,
     f32 and bf16. (d) A one-rank NCCL world and its ("data", "model")
-    mesh: llama3.2's smoke prefill through flash on the local q/k/v (flash
+    mesh: llama3.2's smoke prefill through flash on each rank's share (flash
     launches) and one f32 train step under the mesh ctx, against
-    ctx=None. Prints "phase 14: N s".
+    ctx=None. (e) One layer of llama3.2-3b's prefill attention at full
+    width (4 x 4096, bf16) split as 16 model ranks split it, by (batch row,
+    kv group) units: each rank's ``attention._rank_share`` through flash,
+    the ranks in lock-step (``attention.ranks_in_turn``), bit for bit the
+    whole call. Prints "phase 14: N s".
 13. Prints one JSON line with every kernel's numbers (flash's launches and
     max abs error by path), then the contract's last line. Any failed check raises, and the
     script exits non-zero.
@@ -2102,11 +2110,21 @@ def _train_path(dev) -> None:
 # worker also maps llama's graph on the CPU under ell and xla pinned, so the
 # card's pe_of has its CPU twin when phase 14 comes
 # llama3.2-3b x decode_32k: its 8 kv heads do not divide the 16 model ranks,
-# so the KV cache is sharded over the sequence and no all-gather may move it
+# so the KV cache is sharded over the sequence and no all-gather may move it;
+# llama3.2-3b x train_4k and qwen2-72b x prefill_32k: nor do they divide them
+# in attention, which each rank runs on its (batch row, kv group) units;
+# jamba-v0.1-52b x prefill_32k: Mamba's SSD on each rank's heads
 DRYRUN_CELLS = (("llama3.2-3b", "train_4k"), ("moonshot-v1-16b-a3b", "decode_32k"),
-                ("llama3.2-3b", "decode_32k"))
+                ("llama3.2-3b", "decode_32k"), ("qwen2-72b", "prefill_32k"),
+                ("jamba-v0.1-52b", "prefill_32k"))
+DRYRUN_TOP = 5                            # products printed per cell
 DRYRUN_MAP_CELL = ("llama3.2-3b", "train_4k")
 DRYRUN_FIXTURES = ROOT / "tests" / "data" / "dryrun"
+# each fixture cell's per-device FLOPs over the reference's, as measured, and
+# the relative band it is held within (tests/test_torch_dryrun.py holds the
+# same under the CPU's torch); useful_ratio (model FLOPs over every rank's)
+# at most 1 in every cell
+DRYRUN_FLOPS_RATIO = DRYRUN_FIXTURES / "flops_ratio.json"
 # (c) one MoE layer at full width, V = 16 shards summed in shard order against
 # V = 1 on the same weights, every token kept (capacity factor E / top_k);
 # tokens per layer chosen to fit beside the f32 weights (mixtral: 19 GB).
@@ -2116,6 +2134,8 @@ DRYRUN_FIXTURES = ROOT / "tests" / "data" / "dryrun"
 MOE_CELLS = (("moonshot-v1-16b-a3b", 2048, (1e-6, 1e-6)),
              ("mixtral-8x22b", 512, (1e-5, 1e-4)))
 MOE_V = 16
+# (e) llama3.2-3b's prefill attention (batch, length) split over 16 model ranks
+SPLIT_FLASH = (4, 4096, 16)
 MESH_LOSS_RTOL = 1e-5                     # (d) f32, one-rank mesh against ctx=None
 MESH_LEAF_RTOL = 1e-5                     # relative L2 per gradient / param leaf
 
@@ -2151,6 +2171,14 @@ def _dryrun_worker(out_dir: str) -> int:
         graph = rec.pop("_graph")
         rec["largest_all_gather"] = max((FX.collective_bytes(n) for n in graph.nodes
                                          if FX.collective_kind(n) == "all-gather"), default=0)
+        products = {}
+        for n in graph.nodes:
+            f = FX.node_flops(n) if FX.is_task(n) else 0
+            if f:
+                key = f"{FX._op_name(n)} " + " x ".join(
+                    str(list(FX._shape(i))) for i in FX.input_nodes(n)[:2])
+                products[key] = products.get(key, 0) + f
+        rec["top_products"] = sorted(products.items(), key=lambda kv: -kv[1])[:DRYRUN_TOP]
         if (arch, shape) == DRYRUN_MAP_CELL:
             t0 = time.perf_counter()
             tg = extract_fx_graph(graph, min_tasks=2 * physical_hierarchy(False).k)
@@ -2201,6 +2229,7 @@ def _dryrun_records(dev, _build, worker, out_dir: str) -> None:
     if worker.returncode != 0:
         raise AssertionError(f"dry-run worker exited {worker.returncode}: {log[-3000:]}")
     print(f"dry-run worker: waited {time.perf_counter() - t0:.2f} s for it here", flush=True)
+    ratios = json.loads(DRYRUN_FLOPS_RATIO.read_text())
     for arch, shape in DRYRUN_CELLS:
         rec = json.loads((Path(out_dir) / f"{arch}__{shape}.json").read_text())
         h_, mem = rec["hlo"], rec["memory"]
@@ -2220,15 +2249,28 @@ def _dryrun_records(dev, _build, worker, out_dir: str) -> None:
                 raise AssertionError(f"dry-run {arch} x {shape}: an all-gather of "
                                      f"{rec['largest_all_gather']} bytes, a layer's cache "
                                      f"shard {layer}")
+        if not 0 < rec["useful_ratio"] <= 1.0:
+            raise AssertionError(f"dry-run {arch} x {shape}: useful_ratio "
+                                 f"{rec['useful_ratio']!r}")
+        line += f"; useful_ratio {rec['useful_ratio']:.4f}"
         if ref is not None:
             if mem["argument_bytes"] != ref["memory"]["argument_bytes"]:
                 raise AssertionError(f"dry-run {arch}: argument bytes {mem['argument_bytes']}, "
                                      f"the reference's {ref['memory']['argument_bytes']}")
+            ratio = h_["flops_per_device"] / ref["hlo"]["flops_per_device"]
+            want = ratios["ratio"][f"{arch} x {shape}"]
+            if abs(ratio / want - 1) > ratios["within"]:
+                raise AssertionError(f"dry-run {arch} x {shape}: FLOPs/device ratio {ratio!r}, "
+                                     f"measured {want!r} (within {ratios['within']})")
             line += (f"; the reference's argument bytes equal; FLOPs/device ratio "
-                     f"{h_['flops_per_device'] / ref['hlo']['flops_per_device']:.4f}, "
+                     f"{ratio:.4f} (held within {ratios['within']:.0%} of {want:.4f}), "
                      f"collective bytes ratio "
                      f"{h_['collective_total'] / ref['hlo']['collective_total']:.4f}")
         print(line, flush=True)
+        total = h_["flops_per_device"]
+        print(f"dry-run {arch} x {shape}: the {DRYRUN_TOP} largest products (FLOPs/device, "
+              f"share): " + "; ".join(f"{k} {f:.4g} ({f / total:.1%})"
+                                      for k, f in rec["top_products"]), flush=True)
         if "graph" not in rec:
             continue
         gi = rec["graph"]
@@ -2428,6 +2470,54 @@ def _mesh_one_rank(dev, _build) -> None:
         dist.destroy_process_group()
 
 
+def _split_flash(dev, _build) -> None:
+    """Phase 14 (e): one layer of llama3.2-3b's prefill attention at full
+    width (bf16, B x S and the model ranks of SPLIT_FLASH), split as the
+    model ranks of a mesh split it: each rank's ``attention._rank_share``
+    (its column shards of the projections moved by its all-to-all plan to
+    its (batch row, kv group) units, RoPE, flash on the units, and back),
+    every rank in lock-step on this card (``attention.ranks_in_turn``, the
+    all-to-all done by hand). The column shards put back together must
+    equal one flash call on the whole layer bit for bit."""
+    import functools
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import apply_rope, rope_angles
+    cfg = get_config(ARCH)
+    B, S, M = SPLIT_FLASH
+    G, Dh = cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(B, S, n * Dh, generator=g, device=dev).to(torch.bfloat16)
+               for n in (cfg.num_heads, G, G))
+    rope = rope_angles(torch.arange(S, device=dev)[None, :], Dh, cfg.rope_theta)
+    attend = functools.partial(A._flash, cfg, True)
+
+    def whole():
+        qh, kh, vh = (t.reshape(B, S, -1, Dh) for t in (q, k, v))
+        return attend(apply_rope(qh, *rope), apply_rope(kh, *rope), vh).reshape(B, S, -1)
+
+    def split():
+        def cols(t, m):
+            return t[:, :, slice(*A._chunk_range(t.shape[2], M, m))]
+        return torch.cat(A.ranks_in_turn([
+            A._rank_share(cfg, attend, cols(q, m), cols(k, m), cols(v, m), kinds=("cols",) * 3,
+                          rope=rope, M=M, m=m) for m in range(M)]), dim=2)
+
+    want, t_whole, _ = _run_path("split flash: whole", whole, ["flash_attention"], _build)
+    got, t_split, ln = _run_path("split flash: shares", split, ["flash_attention"], _build)
+    if not torch.equal(got, want):
+        raise AssertionError(f"split flash: the {M} shares differ from the whole call by "
+                             f"{float((got.float() - want.float()).abs().max())}")
+    print(f"split flash: {ARCH} layer attention B={B} S={S} bf16 (heads {cfg.num_heads}/"
+          f"{G}), {B * G} (batch row, kv group) units over {M} model ranks, each rank's "
+          f"_rank_share in turn: the shares put back together equal the whole flash call bit "
+          f"for bit; whole {t_whole * 1e3:.1f} ms, shares one after another "
+          f"{t_split * 1e3:.1f} ms (flash launches {ln['flash_attention']}, the layout moves "
+          f"on this card)", flush=True)
+
+
 def _launch_path(dev, _build, worker, out_dir: str) -> None:
     """Phase 14: the multi-device launch/ pieces (see the module doc). (c)
     and (d) run first, so the worker has the longest; each part runs even
@@ -2437,6 +2527,7 @@ def _launch_path(dev, _build, worker, out_dir: str) -> None:
     import torch
     t0 = time.perf_counter()
     parts = (("(c)", lambda: _moe_parallel(dev)), ("(d)", lambda: _mesh_one_rank(dev, _build)),
+             ("(e)", lambda: _split_flash(dev, _build)),
              ("(a)+(b)", lambda: _dryrun_records(dev, _build, worker, out_dir)))
     errors, took = [], []
     for name, part in parts:

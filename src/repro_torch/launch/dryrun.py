@@ -144,15 +144,14 @@ def lower_cell(cfg, cell, mesh, ctx, serve_bf16: bool = False):
             _, metrics = step(state, b)
             return metrics
         alias = _local_bytes(_state_tree(state))
-        args_bytes = alias + _local_bytes(batch)
+        args_bytes, dropped = alias, batch
     else:
         params = SH.shard_params(_meta_params(cfg, V, torch.bfloat16 if serve_bf16 else None),
                                  mesh, wmode, meta=True)
         if cell.mode == "prefill":
             def run(b):
                 return M.prefill_fn(cfg, params, b, ctx)
-            alias = 0
-            args_bytes = _local_bytes(dict(params.named_parameters())) + _local_bytes(batch)
+            alias = args_bytes = 0
         else:   # decode: one token against a cache of cell.seq_len
             cache = M.init_cache(cfg, cell.global_batch, cell.seq_len, device="meta", V=V)
             cache = SH.place_tree(cache, SH.cache_specs(cfg, cache, ctx), mesh, meta=True)
@@ -161,10 +160,16 @@ def lower_cell(cfg, cell, mesh, ctx, serve_bf16: bool = False):
             def run(b):
                 return M.decode_fn(cfg, params, b["tokens"], cache, pos, ctx)
             alias = _local_bytes(cache)
-            args_bytes = (_local_bytes(dict(params.named_parameters()))
-                          + _local_bytes(batch["tokens"]) + alias + 4)   # + pos
+            args_bytes = alias + 4   # + pos
+        dropped = {"params": dict(params.named_parameters()), "batch": batch}
 
     graph, _ = FX.record_local(run, batch)
+    # of the batch and the serving params, only the leaves the step reads
+    # (jit drops an unused argument: prefill's labels, whisper's decoder in
+    # its prefill and its encoder in decode)
+    read = {id(n.meta["val"]) for n in graph.nodes if n.op == "placeholder"}
+    args_bytes += sum(_local_bytes(t) for _, t in SH.tree_paths(dropped)
+                      if id(t._local_tensor if is_dtensor(t) else t) in read)
     # the results: the recorded outputs (metrics, logits) and what the step
     # updates in place (the train state, the decode cache)
     out = next(n for n in graph.nodes if n.op == "output")

@@ -111,12 +111,14 @@ def mlp_params(cfg: ModelConfig, generator=None, device=None,
 
 
 def apply_mlp(cfg: ModelConfig, p, x):
+    """The MLP; its products are ``sharding.dense`` (pinned under a mesh)."""
+    from .sharding import dense
     if cfg.act == "silu":
-        h = F.silu(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
-        return h @ p["w_down"].to(x.dtype)
+        h = F.silu(dense(x, p["w_gate"])) * dense(x, p["w_up"])
+        return dense(h, p["w_down"])
     # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu(x @ p["w_up"].to(x.dtype) + p["b_up"].to(x.dtype), approximate="tanh")
-    return h @ p["w_down"].to(x.dtype) + p["b_down"].to(x.dtype)
+    h = F.gelu(dense(x, p["w_up"], p["b_up"]), approximate="tanh")
+    return dense(h, p["w_down"], p["b_down"])
 
 
 def embed_params(cfg: ModelConfig, generator=None, device=None) -> nn.ParameterDict:
@@ -171,8 +173,8 @@ def _embed_sharded(tok, tokens):
 
 
 def unembed(cfg: ModelConfig, p, x):
-    w = p["tok"].T if cfg.tie_embeddings else p["out"]
-    return x @ w.to(x.dtype)
+    from .sharding import dense
+    return dense(x, p["tok"].T if cfg.tie_embeddings else p["out"])
 
 
 def softmax_xent(logits, labels, mask=None):

@@ -22,7 +22,7 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import associative_scan, dense_init, full_param, softplus
-from .sharding import split_ready
+from .sharding import dense, is_dtensor, split_ready
 
 P_HEAD = 64
 
@@ -108,8 +108,38 @@ def _ssd_chunked(X, B_, C_, lamb, chunk: int):
     return (y_intra + y_inter).reshape(Bsz, S, H, P)
 
 
+def _ssd(X, B_, C_, lamb, chunk: int):
+    """``_ssd_chunked``; on DTensors whose heads are sharded over mesh axes,
+    on each rank's heads (``sharding.run_local``): X and lamb by their
+    heads, B_ and C_ whole (their gradients are partial over those axes).
+    Left to DTensor, the einsums' merged batch x heads dims would gather
+    the heads and repeat the whole SSD on every rank."""
+    if not is_dtensor(X):
+        return _ssd_chunked(X, B_, C_, lamb, chunk)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from .sharding import run_local
+    pl = list(X.placements)
+    if any(p not in (Shard(0), Shard(2), Replicate()) for p in pl):
+        return _ssd_chunked(X, B_, C_, lamb, chunk)
+    whole = [Replicate() if p == Shard(2) else p for p in pl]
+    partial = [Partial() if p == Shard(2) else p for p in pl]
+    return run_local(lambda *a: _ssd_chunked(*a, chunk), X.device_mesh, (X, B_, C_, lamb),
+                     (pl, whole, whole, pl), (pl, partial, partial, pl), pl, X.shape)
+
+
 def _dt(p, u):
-    return softplus((u @ p["w_dt"].to(u.dtype)).float() + p["b_dt"])
+    return softplus(dense(u, p["w_dt"]).float() + p["b_dt"])
+
+
+def _in_proj(p, x):
+    """(u, z), the halves of ``x @ in_proj``. On DTensors each half is a
+    product of its own (``sharding.dense``), so both come out sharded over
+    the model axis by their own columns (heads); a split of the whole
+    product's sharded columns would gather them."""
+    if is_dtensor(p["in_proj"]):
+        return tuple(dense(x, w) for w in p["in_proj"].chunk(2, dim=1))
+    return dense(x, p["in_proj"]).chunk(2, dim=-1)
 
 
 def apply_mamba(cfg: ModelConfig, p, x, chunk: int = 128):
@@ -120,22 +150,21 @@ def apply_mamba(cfg: ModelConfig, p, x, chunk: int = 128):
     if S % chunk:
         raise ValueError(f"seq {S} must be divisible by the ssd chunk {chunk}")
 
-    uz = x @ p["in_proj"].to(x.dtype)
-    u, z = uz.chunk(2, dim=-1)
+    u, z = _in_proj(p, x)
     u, _ = _causal_conv(u, p["conv_w"])
     u = F.silu(u)
 
-    B_ = u @ p["w_B"].to(u.dtype)
-    C_ = u @ p["w_C"].to(u.dtype)
+    B_ = dense(u, p["w_B"])
+    C_ = dense(u, p["w_C"])
     dt = _dt(p, u)
     a = -torch.exp(p["A_log"])                                           # [H] < 0
     lamb = dt * a                                                        # [B,S,H]
     X = split_ready(u, -1, H).reshape(Bsz, S, H, P_HEAD) * dt[..., None].to(u.dtype)
 
-    y = _ssd_chunked(X, B_, C_, lamb, chunk)
+    y = _ssd(X, B_, C_, lamb, chunk)
     y = y + split_ready(u, -1, H).reshape(Bsz, S, H, P_HEAD).to(y.dtype) * p["D_skip"][None, None, :, None]
     y = y.reshape(Bsz, S, d_in).to(x.dtype) * F.silu(z)
-    return y @ p["out_proj"].to(x.dtype)
+    return dense(y, p["out_proj"])
 
 
 def mamba_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32, device=None):
@@ -153,12 +182,11 @@ def decode_mamba(cfg: ModelConfig, p, x, state):
     """One-token decode. x [B,1,D]; returns (y [B,1,D], new state)."""
     Bsz = x.shape[0]
     d_in, H, N = mamba_dims(cfg)
-    uz = x @ p["in_proj"].to(x.dtype)
-    u, z = uz.chunk(2, dim=-1)
+    u, z = _in_proj(p, x)
     u, conv_state = _causal_conv(u, p["conv_w"], state=state["conv"])
     u = F.silu(u)
-    B_ = (u @ p["w_B"].to(u.dtype)).float()[:, 0]                       # [B,N]
-    C_ = (u @ p["w_C"].to(u.dtype)).float()[:, 0]
+    B_ = dense(u, p["w_B"]).float()[:, 0]                                # [B,N]
+    C_ = dense(u, p["w_C"]).float()[:, 0]
     dt = _dt(p, u)[:, 0]                                                 # [B,H]
     a = -torch.exp(p["A_log"])
     alpha = torch.exp(dt * a)                                            # [B,H]
@@ -167,5 +195,5 @@ def decode_mamba(cfg: ModelConfig, p, x, state):
     y = torch.einsum("bn,bhnp->bhp", C_, h)
     y = y + split_ready(u, -1, H).reshape(Bsz, H, P_HEAD).float() * p["D_skip"][None, :, None]
     y = y.reshape(Bsz, 1, d_in).to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = dense(y, p["out_proj"])
     return out, {"h": h, "conv": conv_state}

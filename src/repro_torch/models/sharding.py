@@ -166,9 +166,123 @@ class _SumOverAxes(torch.autograd.Function):
 
 def sum_over(x, mesh, dims):
     """``x`` (a local tensor inside ``local_map``) summed over the mesh
-    dims ``dims``, differentiably (``_SumOverAxes``)."""
-    groups = [mesh.get_group(i).group_name for i in dims]
+    dims ``dims`` (those of size 1 skipped), differentiably
+    (``_SumOverAxes``)."""
+    groups = [mesh.get_group(i).group_name for i in dims if mesh.size(i) > 1]
     return _SumOverAxes.apply(x, *groups) if groups else x
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of a local tensor over a process group (rows
+    of dim 0 sent in ``in_splits`` to each rank, ``out_splits`` received
+    from each); its backward sends the gradient back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, out_splits, in_splits, group):
+        ctx.splits, ctx.group = (list(out_splits), list(in_splits)), group
+        return _all_to_all(x, out_splits, in_splits, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out_splits, in_splits = ctx.splits
+        return _all_to_all(grad.contiguous(), in_splits, out_splits, ctx.group), None, None, None
+
+
+def _all_to_all(x, out_splits, in_splits, group):
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(c10d.all_to_all_single(x, list(out_splits), list(in_splits), group))
+
+
+def all_to_all(x, mesh, dim: int, out_splits, in_splits):
+    """``x`` (a local tensor inside ``local_map``) exchanged over mesh dim
+    ``dim`` by rows of its dim 0, differentiably (``_AllToAll``)."""
+    if mesh.size(dim) == 1:
+        return x
+    return _AllToAll.apply(x.contiguous(), tuple(out_splits), tuple(in_splits),
+                           mesh.get_group(dim).group_name)
+
+
+def product_plan(x, w, split_cols: bool = True):
+    """The placements of ``x @ w`` (x ``[..., K]``, w ``[K, N]``, DTensors on
+    one mesh), pinned mesh dim by mesh dim so that no choice is left to
+    DTensor's sharding propagation, which differs between torch releases.
+    Returns ``(x_pl, w_pl, out_pl, x_grad_pl, w_grad_pl, summed)``: the
+    operands' placements, the result's, the operands' gradients', and the
+    mesh dims over which each rank's product is a partial sum.
+
+    On each mesh dim, as the reference's rule tables mean them
+    (``launch/shardings.py``: weights ZeRO-sharded over the batch axes,
+    tensor-parallel over ``model``):
+
+    * x's rows (a dim other than the last) sharded there: the weight is
+      gathered on it (ZeRO); the product is each rank's rows.
+    * else the weight's K sharded there (row-parallel, ``wo``/``w_down``):
+      x's features are sharded alike, and the partial products are summed.
+    * else, where the weight is replicated there and ``split_cols`` is
+      False: everything is replicated (the reference's replicated xLSTM
+      weights, whose products every rank repeats).
+    * else (the weight's N sharded, or nothing): the weight's N is sharded
+      there (a local slice of a replicated weight, unevenly in
+      ``torch.chunk``'s order where N does not divide) and x is replicated:
+      each rank computes its columns (column-parallel, ``wq``/``w_up``/the
+      unembed).
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    n, rows, summed = x.ndim, [], []
+    for i, (xp, wp) in enumerate(zip(x.placements, w.placements)):
+        # (x, w, out, x's gradient, w's gradient) on mesh dim i
+        if isinstance(xp, Shard) and xp.dim % n != n - 1:
+            rows.append((xp, Replicate(), xp, xp, Partial()))
+        elif wp == Shard(0):
+            rows.append((Shard(n - 1), wp, Replicate(), Shard(n - 1), wp))
+            summed.append(i)
+        elif wp == Replicate() and not split_cols:
+            rows.append((Replicate(),) * 5)
+        else:
+            rows.append((Replicate(), Shard(1), Shard(n - 1), Partial(), Shard(1)))
+    return (*(list(c) for c in zip(*rows)), summed)
+
+
+def dense(x, w, bias=None, split_cols: bool = True):
+    """``x @ w (+ bias)``, the weight and bias cast to x's dtype. On
+    DTensors the operands are placed by ``product_plan`` (``split_cols``:
+    see there) and each rank multiplies its shards (``run_local``), summing
+    partial products over the mesh dims that need it; a plain ``x`` is the
+    one-device product."""
+    w = w.to(x.dtype)
+    if not (is_dtensor(x) and is_dtensor(w)):
+        out = x @ w
+        return out if bias is None else out + bias.to(x.dtype)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    x_pl, w_pl, out_pl, xg, wg, summed = product_plan(x, w, split_cols)
+    out = run_local(lambda xl, wl: sum_over(xl @ wl, mesh, summed), mesh, (x, w), (x_pl, w_pl),
+                    (xg, wg), out_pl, (*x.shape[:-1], w.shape[1]))
+    if bias is None:
+        return out
+    bias = bias.to(x.dtype)
+    if is_dtensor(bias):
+        bias = bias.redistribute(mesh, [Shard(0) if p == Shard(x.ndim - 1) else Replicate()
+                                        for p in out_pl])
+    return out + bias
+
+
+def run_local(fn, mesh, args, in_placements, grad_placements, out_placements, shape):
+    """``fn`` on this rank's shards of ``args`` (DTensors, redistributed to
+    ``in_placements``; their gradients come back in ``grad_placements``),
+    its local result made a DTensor of the global ``shape`` with
+    ``out_placements``. ``local_map`` does the same but infers the global
+    shape from the local one as if every shard were even, so the ranks of
+    an uneven split (``torch.chunk``'s order) would disagree on it."""
+    from torch.distributed.tensor import DTensor
+    local = [a.redistribute(mesh, pl).to_local(grad_placements=g)
+             for a, pl, g in zip(args, in_placements, grad_placements)]
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.insert(0, n)
+        n *= d
+    return DTensor.from_local(fn(*local), mesh, out_placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
 
 
 def constrain(ctx: ShardCtx | None, x, *spec):

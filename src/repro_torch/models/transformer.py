@@ -30,7 +30,7 @@ from .config import ModelConfig
 from .layers import (CDTYPE, apply_mlp, apply_norm, embed_params, embed_tokens,
                      mlp_params, norm_params, param, softmax_xent, unembed)
 from .moe import apply_moe, moe_params
-from .sharding import ShardCtx, batch_spec, constrain, remat as _remat
+from .sharding import ShardCtx, batch_spec, constrain, dense, remat as _remat
 
 
 def _split_kind(kind: str) -> tuple[str, str]:
@@ -144,8 +144,8 @@ def _apply_block(cfg: ModelConfig, p, x, kind: str, ctx: ShardCtx | None):
     mixer, ff = _split_kind(kind)
     h = apply_norm(cfg, p["norm1"], x)
     if mixer == "attn":
-        out, _ = attn.self_attention(cfg, p["attn"], h, causal=True,
-                                     bf16=bool(ctx and ctx.bf16_attn), ctx=ctx)
+        out = attn.self_attention(cfg, p["attn"], h, causal=True,
+                                  bf16=bool(ctx and ctx.bf16_attn), ctx=ctx)
     elif mixer == "mamba":
         out = mb.apply_mamba(cfg, p["mamba"], h)
     elif mixer == "mlstm":
@@ -193,7 +193,7 @@ def embed_inputs(cfg: ModelConfig, params: DecoderLM, batch, ctx: ShardCtx | Non
     x = embed_tokens(params.embed, tokens)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     if cfg.frontend == "vision_stub":
-        patches = batch["patch_embeds"].to(CDTYPE) @ params.patch_proj.to(CDTYPE)
+        patches = dense(batch["patch_embeds"].to(CDTYPE), params.patch_proj)
         x = torch.cat([patches, x], dim=1)
         mask = torch.cat([torch.zeros(patches.shape[:2], dtype=torch.float32,
                                       device=mask.device), mask], dim=1)

@@ -5,9 +5,11 @@ The port of ``repro/models/whisper.py``. ``EncDecLM`` holds the reference's
 params: ``embed``, ``pos_enc`` [8192, D], ``pos_dec`` [max_target_len, D],
 ``enc`` and ``dec`` (``nn.ModuleList``s, layer i of the reference's stacked
 leaves), ``enc_norm`` and ``final_norm``. As in the reference, the encoder
-and the decoder call ``self_attention`` without a ``ShardCtx``, so they run
-``_sdpa`` and no kernel. With grad mode on, each encoder and decoder layer
-is recomputed in the backward pass (``sharding.remat``; the reference
+and the decoder call ``self_attention`` without the knobs of a
+``ShardCtx``, so they run ``_sdpa`` and no kernel; under a mesh they get a
+ctx of the mesh alone (``_attn_ctx``), so each rank attends its own share
+(``attention._on_rank_share``). With grad mode on, each encoder and
+decoder layer is recomputed in the backward pass (``sharding.remat``; the reference
 checkpoints every layer in full whatever its ``remat``, which the port's
 ``ctx.remat`` may change: the values are the same).
 """
@@ -20,7 +22,7 @@ from . import attention as attn
 from .config import ModelConfig
 from .layers import (CDTYPE, apply_mlp, apply_norm, dense_init, embed_params,
                      embed_tokens, mlp_params, norm_params, softmax_xent, unembed)
-from .sharding import ShardCtx, batch_spec, constrain, remat, split_ready
+from .sharding import ShardCtx, batch_spec, constrain, dense, remat, split_ready
 
 
 def _enc_block_params(cfg: ModelConfig, generator=None, device=None) -> nn.ModuleDict:
@@ -84,10 +86,11 @@ def encode(cfg: ModelConfig, params: EncDecLM, frames, ctx: ShardCtx | None = No
     bs = batch_spec(ctx)
     x = frames.to(CDTYPE) + _positions(params.pos_enc, frames.shape[1])[None]
     x = constrain(ctx, x, bs, None, None)
+    actx = _attn_ctx(ctx)
 
     def layer(p, h):
         a = apply_norm(cfg, p["norm1"], h)
-        out, _ = attn.self_attention(cfg, p["attn"], a, causal=False)
+        out = attn.self_attention(cfg, p["attn"], a, causal=False, ctx=actx)
         h = h + constrain(ctx, out, bs, None, None)
         a = apply_norm(cfg, p["norm2"], h)
         return h + constrain(ctx, apply_mlp(cfg, p["mlp"], a), bs, None, None)
@@ -96,14 +99,19 @@ def encode(cfg: ModelConfig, params: EncDecLM, frames, ctx: ShardCtx | None = No
     return apply_norm(cfg, params.enc_norm, x)
 
 
+def _attn_ctx(ctx: ShardCtx | None) -> ShardCtx | None:
+    """The ctx the encoder's and the decoder's attention get: the mesh
+    alone (no flash kernel, no context parallelism, as the reference's
+    attention without a ctx), or None without a mesh."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    return ShardCtx(mesh=ctx.mesh, batch_axes=ctx.batch_axes, model_axis=ctx.model_axis)
+
+
 def _memory_kv(cfg: ModelConfig, p, memory):
-    """One decoder layer's cross-attention K/V of the encoder states."""
-    B, T, _ = memory.shape
-    mk = split_ready(memory @ p["xattn"]["wk"].to(memory.dtype), -1, cfg.num_kv_heads
-                     ).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    mv = split_ready(memory @ p["xattn"]["wv"].to(memory.dtype), -1, cfg.num_kv_heads
-                     ).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    return mk, mv
+    """One decoder layer's cross-attention K/V of the encoder states,
+    ``[B,T,kv_dim]`` each, as projected."""
+    return dense(memory, p["xattn"]["wk"]), dense(memory, p["xattn"]["wv"])
 
 
 def decode_train(cfg: ModelConfig, params: EncDecLM, tokens, memory,
@@ -114,13 +122,14 @@ def decode_train(cfg: ModelConfig, params: EncDecLM, tokens, memory,
     # the embedding's rows come batch-sharded (XLA propagates the tokens'
     # sharding; DTensor's embedding rule would shard the rows otherwise)
     x = constrain(ctx, x, bs, None, None)
+    actx = _attn_ctx(ctx)
 
     def layer(p, h, mem):
         a = apply_norm(cfg, p["norm1"], h)
-        out, _ = attn.self_attention(cfg, p["attn"], a, causal=True)
+        out = attn.self_attention(cfg, p["attn"], a, causal=True, ctx=actx)
         h = h + constrain(ctx, out, bs, None, None)
         a = apply_norm(cfg, p["norm2"], h)
-        out = attn.cross_attention(cfg, p["xattn"], a, _memory_kv(cfg, p, mem))
+        out = attn.cross_attention(cfg, p["xattn"], a, _memory_kv(cfg, p, mem), actx)
         h = h + constrain(ctx, out, bs, None, None)
         a = apply_norm(cfg, p["norm3"], h)
         return h + constrain(ctx, apply_mlp(cfg, p["mlp"], a), bs, None, None)
@@ -151,8 +160,12 @@ def prefill_memory(cfg: ModelConfig, params: EncDecLM, frames, ctx: ShardCtx | N
     """Encode audio and precompute cross-attention K/V per decoder layer:
     ([L,B,T,Hkv,Dh], [L,B,T,Hkv,Dh])."""
     memory = encode(cfg, params, frames, ctx)
+    B, T, _ = memory.shape
+
+    def heads(t):
+        return split_ready(t, -1, cfg.num_kv_heads).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
     kvs = [_memory_kv(cfg, p, memory) for p in params.dec]
-    return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
+    return torch.stack([heads(k) for k, _ in kvs]), torch.stack([heads(v) for _, v in kvs])
 
 
 def decode_step(cfg: ModelConfig, params: EncDecLM, tokens, cache, pos: int,

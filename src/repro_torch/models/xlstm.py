@@ -20,8 +20,16 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import associative_scan, dense_init, full_param, log_sigmoid, rmsnorm
+from .sharding import dense
 
 CLIP = 30.0
+
+
+def _proj(x, w, b=None):
+    """``x @ w (+ b)`` (``sharding.dense``). The reference keeps xLSTM's
+    weights replicated (``launch/shardings.py``), and under a mesh every
+    rank computes the whole product, as its SPMD program does."""
+    return dense(x, w, b, split_cols=False)
 
 
 def _heads(cfg: ModelConfig) -> tuple[int, int]:
@@ -64,11 +72,11 @@ def apply_mlstm(cfg: ModelConfig, p, x, chunk: int = 256):
     # the reference divides by sqrt(P) rounded to the compute dtype
     # (bf16: sqrt(192) = 13.875)
     sqrt_p = torch.tensor(math.sqrt(P), dtype=torch.float32).to(x.dtype)
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, P)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, H, P) / sqrt_p.to(x.device)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, H, P)
-    logi = (x @ p["wi"].to(x.dtype)).float()                                   # [B,S,H]
-    logf = log_sigmoid((x @ p["wf"].to(x.dtype)).float() + p["bf"])
+    q = _proj(x, p["wq"]).reshape(B, S, H, P)
+    k = _proj(x, p["wk"]).reshape(B, S, H, P) / sqrt_p.to(x.device)
+    v = _proj(x, p["wv"]).reshape(B, S, H, P)
+    logi = _proj(x, p["wi"]).float()                                           # [B,S,H]
+    logf = log_sigmoid(_proj(x, p["wf"]).float() + p["bf"])
 
     qc = q.reshape(B, nc, chunk, H, P).float()
     kc = k.reshape(B, nc, chunk, H, P).float()
@@ -109,7 +117,7 @@ def apply_mlstm(cfg: ModelConfig, p, x, chunk: int = 256):
     y = (y_intra + y_inter) / denom
     # per-head RMS norm, then output proj
     y = rmsnorm(y.reshape(B, S, D).to(x.dtype), p["norm"])
-    return y @ p["wo"].to(x.dtype)
+    return _proj(y, p["wo"])
 
 
 def mlstm_state_init(cfg: ModelConfig, batch: int, device=None):
@@ -125,12 +133,12 @@ def decode_mlstm(cfg: ModelConfig, p, x, state):
     B = x.shape[0]
     D = cfg.d_model
     H, P = _heads(cfg)
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, H, P).float()
+    q = _proj(x, p["wq"]).reshape(B, H, P).float()
     # here the reference divides by the f32 sqrt(P)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, H, P).float() / math.sqrt(P)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, H, P).float()
-    logi = (x @ p["wi"].to(x.dtype)).float()[:, 0]
-    logf = log_sigmoid((x @ p["wf"].to(x.dtype)).float() + p["bf"])[:, 0]
+    k = _proj(x, p["wk"]).reshape(B, H, P).float() / math.sqrt(P)
+    v = _proj(x, p["wv"]).reshape(B, H, P).float()
+    logi = _proj(x, p["wi"]).float()[:, 0]
+    logf = log_sigmoid(_proj(x, p["wf"]).float() + p["bf"])[:, 0]
     fa = torch.exp(_clip(logf))
     ia = torch.exp(_clip(logi))
     C = fa[..., None, None] * state["C"] + ia[..., None, None] * torch.einsum(
@@ -140,7 +148,7 @@ def decode_mlstm(cfg: ModelConfig, p, x, state):
     den = torch.clamp_min(torch.einsum("bhp,bhp->bh", q, n).abs(), 1.0)[..., None]
     y = (num / den).reshape(B, 1, D).to(x.dtype)
     y = rmsnorm(y, p["norm"])
-    return y @ p["wo"].to(x.dtype), {"C": C, "n": n, "f_acc": state["f_acc"]}
+    return _proj(y, p["wo"]), {"C": C, "n": n, "f_acc": state["f_acc"]}
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +203,7 @@ def apply_slstm(cfg: ModelConfig, p, x, time_chunk: int = 1):
     value gives the same result, bit for bit."""
     B, S, D = x.shape
     H, P = _heads(cfg)
-    wx = x @ p["W"].to(x.dtype) + p["b"].to(x.dtype)          # [B,S,4D]
+    wx = _proj(x, p["W"], p["b"])                             # [B,S,4D]
     state = slstm_state_init(cfg, B, device=x.device)
     tc = max(int(time_chunk), 1)
     if S % tc:
@@ -207,14 +215,14 @@ def apply_slstm(cfg: ModelConfig, p, x, time_chunk: int = 1):
         hs.append(state["h"])
     y = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
     y = rmsnorm(y, p["norm"])
-    return y @ p["wo"].to(x.dtype)
+    return _proj(y, p["wo"])
 
 
 def decode_slstm(cfg: ModelConfig, p, x, state):
     B = x.shape[0]
     D = cfg.d_model
-    wx = (x @ p["W"].to(x.dtype) + p["b"].to(x.dtype))[:, 0]
+    wx = _proj(x, p["W"], p["b"])[:, 0]
     new = _slstm_step(cfg, p["R"].to(wx.dtype), wx, state)
     y = new["h"].reshape(B, 1, D).to(x.dtype)
     y = rmsnorm(y, p["norm"])
-    return y @ p["wo"].to(x.dtype), new
+    return _proj(y, p["wo"]), new

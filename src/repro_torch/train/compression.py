@@ -5,14 +5,14 @@ Per-chunk symmetric int8 quantization with error feedback: the residual is
 carried to the next step, so nothing is lost over time. ``compressed_psum``
 is the error-feedback int8 all-reduce MEAN over the processes of
 ``torch.distributed`` (the reference's ``psum`` over a pod axis inside
-``shard_map``): every process quantizes on one shared grid (the max of the
-per-chunk scales), the int8 payloads sum exactly in int32, and the sum
-dequantizes with the shared scale. The reduction itself is
-``reduce_compressed``, a function of the stacked per-process values, so it
-runs the same whether the values came from an ``all_gather`` or from one
-process standing for several; without a process group the world size is 1
-and nothing is exchanged. The gather moves the f32 values, so the int8
-wire format shows in the arithmetic here, not yet in the traffic.
+``shard_map``): every process quantizes on one shared grid (an all-reduce
+MAX of the per-chunk scales), the int8 payloads sum exactly in int32 (an
+all-reduce SUM), and the sum dequantizes with the shared scale: on the
+wire one f32 scale a chunk and the int8 payload widened to int32, as the
+reference's ``pmax`` and ``psum`` move them. ``reduce_compressed``
+is the same reduction as a function of the stacked per-process values
+(one process standing for several); without a process group the world
+size is 1 and nothing is exchanged.
 """
 from __future__ import annotations
 
@@ -69,16 +69,20 @@ def reduce_compressed(g: torch.Tensor, residual: torch.Tensor):
 def compressed_psum(g: torch.Tensor, residual: torch.Tensor, group=None):
     """Error-feedback int8 all-reduce MEAN over the processes of ``group``
     (``torch.distributed``'s default group when it is initialized; else
-    this process alone). Returns (mean, new residual)."""
+    this process alone). Returns (mean, new residual).
+
+    The reference's wire format: an all-reduce MAX of the local per-chunk
+    scales (f32, one a chunk), then an all-reduce SUM of the int8 payloads
+    as int32, which is exact: the result is ``reduce_compressed`` of every
+    process's values, bit for bit."""
     import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()):
         out, res = reduce_compressed(g[None], residual[None])
         return out[0], res[0]
-    world = dist.get_world_size(group)
-    rank = dist.get_rank(group)
-    gs = [torch.empty_like(g) for _ in range(world)]
-    rs = [torch.empty_like(residual) for _ in range(world)]
-    dist.all_gather(gs, g.contiguous(), group=group)
-    dist.all_gather(rs, residual.contiguous(), group=group)
-    out, res = reduce_compressed(torch.stack(gs), torch.stack(rs))
-    return out[rank], res[rank]
+    _, scale = quantize_int8(g.float() + residual)
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    (q, scale), res = compress_with_feedback(g, residual, scale)
+    qsum = q.to(torch.int32)
+    dist.all_reduce(qsum, op=dist.ReduceOp.SUM, group=group)
+    out = dequantize_int8(qsum, scale, g.shape) / dist.get_world_size(group)
+    return out.to(g.dtype), res

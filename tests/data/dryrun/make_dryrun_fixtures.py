@@ -29,7 +29,10 @@ HERE = Path(__file__).resolve().parent
 REPO = HERE.parents[2]
 CELLS = (("whisper-tiny", "train_4k", "pod1"),
          ("moonshot-v1-16b-a3b", "decode_32k", "pod1"),
-         ("llama3.2-3b", "decode_32k", "pod1"))
+         ("llama3.2-3b", "decode_32k", "pod1"),
+         ("llama3.2-3b", "train_4k", "pod1"),
+         ("qwen2-72b", "prefill_32k", "pod1"),
+         ("jamba-v0.1-52b", "prefill_32k", "pod1"))
 DROP = ("trace", "roofline")
 
 

@@ -260,11 +260,16 @@ def _attn_case(window: int, bias: bool = False):
 def test_self_attention_f32(flash, window, bf16_attn):
     cfg_j, cfg, p = _attn_case(window, bias=window > 0)
     x = (np.random.default_rng(4).standard_normal((2, 37, cfg.d_model)) * 0.5).astype(np.float32)
-    got, (k, v) = A.self_attention(cfg, _group(p), T(x), causal=True, bf16=bf16_attn,
-                                   ctx=ShardCtx(use_flash=True) if flash else None)
+    got = A.self_attention(cfg, _group(p), T(x), causal=True, bf16=bf16_attn,
+                           ctx=ShardCtx(use_flash=True) if flash else None)
     want, (jk, jv) = JA.self_attention(cfg_j, p, x, causal=True, bf16=bf16_attn,
                                        ctx=_FlashCtx() if flash else None)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL, rtol=1e-5)
+    # the port's self_attention returns no k/v: its projection and RoPE
+    # against the reference's returned ones
+    _, k, v = A._heads(cfg, *A._project_qkv(cfg, _group(p), T(x)))
+    k = L.apply_rope(k, *L.rope_angles(torch.arange(x.shape[1])[None, :], cfg.head_dim,
+                                       cfg.rope_theta))
     np.testing.assert_allclose(k.numpy(), np.asarray(jk), atol=F32_ATOL, rtol=1e-5)
     np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=F32_ATOL, rtol=1e-5)
 

@@ -23,6 +23,20 @@ sharded train step on a real multi-rank world, on the CPU.
   sequence: the new rows land in the cache (pos 5 in the first model
   shard's slice, 12 in the second's), the rest stays, and cache and logits
   match the reference's sharded decode.
+* In the same world, the step's loss and gradients on a (1, 4) mesh, whose
+  4 model ranks the smoke config's 2 kv heads do not divide, so attention
+  is split by (batch row, kv group) units (through ``_sdpa`` and through
+  the flash kernel's plain version), against the one-device port and the
+  JAX package's own on a (1, 4) mesh, at the same tolerances; whisper's
+  step with 2 heads (encoder, decoder and cross-attention split alike),
+  again with a vocab of 259 that the model ranks split unevenly, xlstm's
+  step (products replicated) and two llama decode steps on a replicated
+  cache of 18 rows, against the one-device port; jamba's step without
+  experts on the (2, 2) mesh (the SSD on each model rank's heads) against
+  the one-device port; and ``compressed_psum`` on the four ranks:
+  all-reduces of the f32 scales and the int32 payloads, bit for bit the
+  all-gathered values' reduction.
+The world and the reference are spawned once (the ``world`` fixture).
 """
 import dataclasses
 import os
@@ -130,7 +144,25 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
 rank, port = int(sys.argv[1]), int(sys.argv[2])
-OPT, DECODE_POS = {OPT!r}, {DECODE_POS!r}
+OPT, DECODE_POS, SPLIT_FLASH = {OPT!r}, {DECODE_POS!r}, {SPLIT_FLASH!r}
+SPLIT_DECODE_POS = {SPLIT_DECODE_POS!r}
+UNEVEN_VOCAB = {UNEVEN_VOCAB!r}
+MIXERS = {MIXERS!r}
+
+def whisper_batch(cfg):
+    """The (1, 4) whisper step's batch: 16 frames, 8 tokens a row."""
+    rng = np.random.default_rng(5)
+    return {"frames": rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32),
+            "tokens": rng.integers(0, cfg.vocab_size, (4, 8)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab_size, (4, 8)).astype(np.int32)}
+
+def split_cache(cfg):
+    """The (1, 4) decode's starting cache: random rows, 18 of them."""
+    from repro_torch.models import model as M
+    shape = M.init_cache(cfg, 4, 18, device="cpu")["k"].shape
+    rng = np.random.default_rng(4)
+    return {k: rng.standard_normal(shape).astype(np.float32) for k in ("k", "v")}
+
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=4)
 torch.manual_seed(0)
 for m in ("layers", "model", "transformer", "whisper"):
@@ -170,6 +202,35 @@ out["moe"] = y.full_tensor().detach().numpy().tolist()
 out["moe_grads"] = [g.redistribute(mesh, t.placements).full_tensor().numpy().tolist()
                     for g, t in zip(grads, leaves)]
 
+# compressed_psum on the world: its all-reduces against the all-gather of
+# every rank's values and their stacked reduction, bit for bit
+from torch.utils._python_dispatch import TorchDispatchMode
+from repro_torch.train import compression as C
+
+class Collectives(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "c10d":
+            ts = [t for a in args for t in (a if isinstance(a, (list, tuple)) else [a])
+                  if isinstance(t, torch.Tensor)]
+            self.seen.append([func._schema.name, str(ts[0].dtype), ts[0].numel()])
+        return func(*args, **(kwargs or {}))
+
+prng = np.random.default_rng(3)
+pg = torch.from_numpy(prng.standard_normal((4, 3000)).astype(np.float32))
+pr = torch.from_numpy((prng.standard_normal((4, 3000)) * 0.01).astype(np.float32))
+with Collectives() as seen:
+    pout, pres = C.compressed_psum(pg[rank], pr[rank])
+gs, rs = [torch.empty(3000) for _ in range(4)], [torch.empty(3000) for _ in range(4)]
+dist.all_gather(gs, pg[rank])
+dist.all_gather(rs, pr[rank])
+want_out, want_res = C.reduce_compressed(torch.stack(gs), torch.stack(rs))
+assert torch.equal(pout, want_out[rank]) and torch.equal(pres, want_res[rank]), rank
+out["psum"] = seen.seen
+
 # one f32 train step of the llama smoke config
 cfg = reg.get_smoke_config("llama3.2-3b")
 state = init_train_state(cfg, 0, "cpu")
@@ -187,6 +248,72 @@ out["step_loss"] = float(met["loss"].full_tensor())
 out["grad_norm"] = float(met["grad_norm"].full_tensor())
 out["params"] = {k: w.full_tensor().detach().numpy().tolist()
                  for k, w in state.params.named_parameters()}
+
+# the same loss and gradients on a (1, 4) mesh: the 2 kv heads do not divide
+# the 4 model ranks, so attention is split by (batch row, kv group) units,
+# through _sdpa and through the flash kernel's plain version
+mesh14 = DeviceMesh("cpu", torch.arange(4).reshape(1, 4), mesh_dim_names=("data", "model"))
+out["split"] = {}
+for flash in SPLIT_FLASH:
+    c14 = ShardCtx(mesh=mesh14, use_flash=flash)
+    st = SH.shard_state(init_train_state(cfg, 0, "cpu"), mesh14)
+    b14 = {"tokens": tok, "labels": lab}
+    b14 = SH.place_tree(b14, SH.batch_specs(cfg, b14, c14), mesh14)
+    l14, g14 = loss_and_grads(cfg, st.params, b14, c14)
+    out["split"][str(flash)] = {"loss": float(l14.full_tensor()),
+                                "grads": {k: v.full_tensor().numpy().tolist()
+                                          for k, v in g14.items()}}
+
+# whisper's encoder, decoder and cross-attention on the (1, 4) mesh, with 2
+# heads, which the 4 model ranks do not divide
+wcfg = dataclasses.replace(reg.get_smoke_config("whisper-tiny"), num_heads=2, num_kv_heads=2)
+wb = {k: torch.from_numpy(v) for k, v in whisper_batch(wcfg).items()}
+wb = SH.place_tree(wb, SH.batch_specs(wcfg, wb, ShardCtx(mesh=mesh14)), mesh14)
+wl, wg = loss_and_grads(wcfg, SH.shard_state(init_train_state(wcfg, 0, "cpu"), mesh14).params,
+                        wb, ShardCtx(mesh=mesh14))
+out["split_whisper"] = {"loss": float(wl.full_tensor()),
+                        "grads": {k: v.full_tensor().numpy().tolist() for k, v in wg.items()}}
+
+# whisper with a vocab that the 4 model ranks do not divide: the tied
+# embedding is replicated (sanitize_spec) and the unembed's columns are split
+# unevenly (65, 65, 65, 64)
+ucfg = dataclasses.replace(wcfg, vocab_size=UNEVEN_VOCAB)
+ub = {k: torch.from_numpy(v) for k, v in whisper_batch(ucfg).items()}
+ub = SH.place_tree(ub, SH.batch_specs(ucfg, ub, ShardCtx(mesh=mesh14)), mesh14)
+ul, ug = loss_and_grads(ucfg, SH.shard_state(init_train_state(ucfg, 0, "cpu"), mesh14).params,
+                        ub, ShardCtx(mesh=mesh14))
+out["uneven_vocab"] = {"loss": float(ul.full_tensor()),
+                       "grads": {k: v.full_tensor().numpy().tolist() for k, v in ug.items()}}
+
+# Mamba (jamba's smoke config without its experts) on the (2, 2) mesh, whose
+# 2 model ranks split its 2 SSD heads, and xLSTM (its products replicated,
+# as its weights are) on the (1, 4) mesh
+out["mixers"] = {}
+for arch, mesh_shape in MIXERS:
+    mcfg = dataclasses.replace(reg.get_smoke_config(arch), num_experts=0)
+    mm = mesh if mesh_shape == (2, 2) else mesh14
+    mctx = ShardCtx(mesh=mm)
+    mb = SH.place_tree({"tokens": tok, "labels": lab},
+                       SH.batch_specs(mcfg, {"tokens": tok, "labels": lab}, mctx), mm)
+    ml, mg = loss_and_grads(mcfg, SH.shard_state(init_train_state(mcfg, 0, "cpu"), mm).params,
+                            mb, mctx)
+    out["mixers"][arch] = {"loss": float(ml.full_tensor()),
+                           "grads": {k: v.full_tensor().numpy().tolist() for k, v in mg.items()}}
+
+# decode on the (1, 4) mesh against a cache of 18 rows, which the 4 model
+# ranks divide no more than its 2 kv heads: the cache stays replicated and
+# each rank attends its units of it
+c14 = ShardCtx(mesh=mesh14)
+rparams = SH.shard_params(M.init_fn(cfg, 0, "cpu"), mesh14)
+rcache = {k: torch.from_numpy(v) for k, v in split_cache(cfg).items()}
+rcache = SH.place_tree(rcache, SH.cache_specs(cfg, rcache, c14), mesh14)
+assert all(t.placements[1] == Replicate() for t in rcache.values())   # over model
+rtok = {"tokens": torch.arange(4, dtype=torch.int32)[:, None]}
+rtok = SH.place_tree(rtok, SH.batch_specs(cfg, rtok, c14), mesh14)["tokens"]
+out["split_decode"] = {
+    "logits": [M.decode_fn(cfg, rparams, rtok, rcache, pos, c14)[0].full_tensor().tolist()
+               for pos in SPLIT_DECODE_POS],
+    "cache": {k: t.full_tensor().tolist() for k, t in rcache.items()}}
 
 # decode with one kv head: it does not divide the model axis, so
 # cache_specs shards the cache over its sequence; pos 5 writes into the
@@ -248,7 +375,7 @@ from repro_torch.train.train_step import init_train_state
 OPT, DECODE_POS = {OPT!r}, {DECODE_POS!r}
 mesh = Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
 ctx = ShardCtx(mesh=mesh)
-def place(tree, specs):
+def place(tree, specs, mesh=mesh):
     return jax.tree.map(lambda x, s: jax.device_put(
         x, NamedSharding(mesh, JSH.sanitize_spec(s, x.shape, mesh))), tree, specs)
 def host(tree):
@@ -271,6 +398,15 @@ state, met = jax.jit(make_train_step(cfg, AdamWConfig(**OPT), ctx))(
 out["step_loss"], out["grad_norm"] = float(met["loss"]), float(met["grad_norm"])
 out["params"] = host(state.params)
 
+# the loss and gradients on a (1, 4) mesh
+mesh14 = Mesh(np.array(jax.devices()).reshape(1, 4), ("data", "model"))
+ctx14 = ShardCtx(mesh=mesh14)
+p14 = place(jax.tree.map(jnp.asarray, to_reference_tree(named)), JSH.param_specs(params), mesh14)
+b14 = place({k: np.asarray(v) for k, v in batch.items()},
+            JSH.batch_specs(cfg, batch, ctx14), mesh14)
+loss14, grads14 = jax.jit(jax.value_and_grad(lambda p, b: JM.loss_fn(cfg, p, b, ctx14)))(p14, b14)
+out["split"] = {"loss": float(loss14), "grads": host(grads14)}
+
 dcfg = dataclasses.replace(cfg, num_kv_heads=1)
 dnamed = dict(M.init_fn(dataclasses.replace(reg.get_smoke_config("llama3.2-3b"),
                                              num_kv_heads=1), 0, "cpu").named_parameters())
@@ -290,12 +426,20 @@ print(json.dumps(out))
 """
 OPT = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 8}
 DECODE_POS = (5, 12)
+SPLIT_FLASH = (False, True)     # the (1, 4) mesh's attention: _sdpa, flash
+SPLIT_DECODE_POS = (5, 17)      # its decode steps, into a cache of 18 rows
+UNEVEN_VOCAB = 259              # a vocab the (1, 4) mesh's model ranks do not divide
+MIXERS = (("jamba-v0.1-52b", (2, 2)), ("xlstm-125m", (1, 4)))   # arch, mesh
 
 
 def _script(tmp_path, name, text):
     path = tmp_path / name
     path.write_text(text.replace("{OPT!r}", repr(OPT)).replace("{DECODE_POS!r}",
-                                                                repr(DECODE_POS)))
+                                                                repr(DECODE_POS))
+                    .replace("{SPLIT_FLASH!r}", repr(SPLIT_FLASH))
+                    .replace("{SPLIT_DECODE_POS!r}", repr(SPLIT_DECODE_POS))
+                    .replace("{UNEVEN_VOCAB!r}", repr(UNEVEN_VOCAB))
+                    .replace("{MIXERS!r}", repr(MIXERS)))
     return str(path)
 
 
@@ -316,15 +460,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_two_by_two_gloo_world_matches_one_device(monkeypatch, tmp_path):
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The four gloo ranks and the JAX package's reference, spawned once:
+    (the ranks' results, the reference's, the decode cache they started
+    from)."""
     import json
 
     from repro_torch.configs import registry as reg
     from repro_torch.models import model as M
-    from repro_torch.models.convert import to_reference_tree
-    from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.train_step import init_train_state, loss_and_grads, make_train_step
 
+    tmp_path = tmp_path_factory.mktemp("world")
     # the decode cache: random rows everywhere (the mask hides those past pos)
     dcfg = dataclasses.replace(reg.get_smoke_config("llama3.2-3b"), num_kv_heads=1)
     shape = M.init_cache(dcfg, 4, 16, device="cpu")["k"].shape
@@ -348,10 +494,33 @@ def test_two_by_two_gloo_world_matches_one_device(monkeypatch, tmp_path):
         assert p.returncode == 0, err[-3000:]
     got = json.loads(outs[0][0].strip().splitlines()[-1])
     ref = json.loads(outs[-1][0].strip().splitlines()[-1])
+    return got, ref, cache0
 
+
+def _f32(monkeypatch):
     for m in ("layers", "model", "transformer", "whisper"):
         monkeypatch.setattr(__import__(f"repro_torch.models.{m}", fromlist=["x"]), "CDTYPE",
                             torch.float32)
+
+
+def _held_against_reference(got, ref, key):
+    from repro_torch.models.convert import to_reference_tree
+    mine = _leaves(to_reference_tree({k: np.array(v, np.float32) for k, v in got.items()}))
+    theirs = _leaves(ref)
+    assert set(mine) == set(theirs)
+    errs = {k: _rel_l2(mine[k], theirs[k]) for k in theirs}
+    worst = max(errs, key=errs.get)
+    print(f"{key} against the reference: worst leaf {worst} rel L2 {errs[worst]:.3g}")
+    assert errs[worst] <= GRAD_RL2, (key, worst, errs[worst])
+
+
+def test_two_by_two_gloo_world_matches_one_device(monkeypatch, world):
+    from repro_torch.configs import registry as reg
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, loss_and_grads, make_train_step
+
+    got, ref, cache0 = world
+    _f32(monkeypatch)
     # the MoE layer: per data shard (2 batch rows), the two model shards' sum
     cfg = reg.get_smoke_config("moonshot-v1-16b-a3b")
     cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
@@ -393,14 +562,7 @@ def test_two_by_two_gloo_world_matches_one_device(monkeypatch, tmp_path):
     for key in ("loss", "step_loss", "grad_norm"):
         np.testing.assert_allclose(got[key], ref[key], rtol=LOSS_RTOL)
     for key in ("grads", "params"):
-        mine = _leaves(to_reference_tree({k: np.array(v, np.float32)
-                                          for k, v in got[key].items()}))
-        theirs = _leaves(ref[key])
-        assert set(mine) == set(theirs)
-        errs = {k: _rel_l2(mine[k], theirs[k]) for k in theirs}
-        worst = max(errs, key=errs.get)
-        print(f"{key} against the reference: worst leaf {worst} rel L2 {errs[worst]:.3g}")
-        assert errs[worst] <= GRAD_RL2, (key, worst, errs[worst])
+        _held_against_reference(got[key], ref[key], key)
 
     # decode on the sequence-sharded cache: the rows land where the
     # reference writes them, and the logits agree
@@ -415,3 +577,139 @@ def test_two_by_two_gloo_world_matches_one_device(monkeypatch, tmp_path):
         written[list(DECODE_POS)] = True
         assert (a[:, :, written] != cache0[k][:, :, written]).all(), k
         np.testing.assert_array_equal(a[:, :, ~written], cache0[k][:, :, ~written])
+
+
+@pytest.mark.parametrize("flash", SPLIT_FLASH, ids=["sdpa", "flash"])
+def test_one_by_four_mesh_splits_attention_by_units(monkeypatch, world, flash):
+    """On the (1, 4) mesh of the same world the llama smoke config's 2 kv
+    heads do not divide the 4 model ranks: each rank attends its share of
+    the (batch row, kv group) units (``attention._on_rank_share``), moved
+    there by all-to-all. Its loss and gradients against the one-device port
+    and the JAX package's step on a (1, 4) mesh."""
+    from repro_torch.configs import registry as reg
+    from repro_torch.train.train_step import init_train_state, loss_and_grads
+
+    got, ref, _ = world
+    split = got["split"][str(flash)]
+    _f32(monkeypatch)
+    cfg = reg.get_smoke_config("llama3.2-3b")
+    assert cfg.num_kv_heads % 4 and cfg.num_heads % 4 == 0
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    loss, grads = loss_and_grads(cfg, init_train_state(cfg, 0, "cpu").params, batch)
+    np.testing.assert_allclose(split["loss"], float(loss), rtol=LOSS_RTOL)
+    for k, gw in grads.items():
+        assert _rel_l2(split["grads"][k], gw.numpy()) <= GRAD_RL2, k
+    np.testing.assert_allclose(split["loss"], ref["split"]["loss"], rtol=LOSS_RTOL)
+    _held_against_reference(split["grads"], ref["split"]["grads"], "grads")
+
+
+def test_compressed_psum_on_the_world(world):
+    """``compressed_psum`` on the four gloo ranks equals the all-gather of
+    every rank's values reduced together (``reduce_compressed``) bit for bit
+    (held on each rank), and moves what the reference's ``pmax`` and
+    ``psum`` move: an all-reduce of the f32 scales (one a chunk of 2048),
+    then one of the int32 payloads; no all-gather."""
+    got, _, _ = world
+    chunks = -(-3000 // 2048)
+    assert got["psum"] == [["c10d::allreduce_", "torch.float32", chunks],
+                           ["c10d::allreduce_", "torch.int32", chunks * 2048]]
+
+
+def test_one_by_four_decode_on_a_replicated_cache(monkeypatch, world):
+    """Decode on the (1, 4) mesh against a cache of 18 rows: neither its
+    length nor the 2 kv heads divide the 4 model ranks, so the cache stays
+    replicated and each rank attends its (batch row, kv group) units of it.
+    The logits and the written rows against the one-device port."""
+    from repro_torch.configs import registry as reg
+    from repro_torch.models import model as M
+
+    got = world[0]["split_decode"]
+    _f32(monkeypatch)
+    cfg = reg.get_smoke_config("llama3.2-3b")
+    params = M.init_fn(cfg, 0, "cpu")
+    shape = M.init_cache(cfg, 4, 18, device="cpu")["k"].shape
+    rng = np.random.default_rng(4)
+    cache = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             for k in ("k", "v")}
+    tok = torch.arange(4, dtype=torch.int32)[:, None]
+    for pos, logits in zip(SPLIT_DECODE_POS, got["logits"]):
+        want = M.decode_fn(cfg, params, tok, cache, pos)[0]
+        np.testing.assert_allclose(np.array(logits), want.numpy(), rtol=DECODE_RTOL,
+                                   atol=DECODE_ATOL, err_msg=f"pos {pos}")
+    for k in ("k", "v"):
+        np.testing.assert_allclose(np.array(got["cache"][k]), cache[k].numpy(),
+                                   rtol=DECODE_RTOL, atol=DECODE_ATOL, err_msg=k)
+
+
+def test_one_by_four_whisper_splits_cross_attention_by_units(monkeypatch, world):
+    """whisper's encoder, decoder and cross-attention (``_attn_ctx``: the
+    mesh alone) with 2 heads on the (1, 4) mesh: each rank attends its
+    units of every attention. Loss and gradients against the one-device
+    port."""
+    from repro_torch.configs import registry as reg
+    from repro_torch.train.train_step import init_train_state, loss_and_grads
+
+    got = world[0]["split_whisper"]
+    _f32(monkeypatch)
+    cfg = dataclasses.replace(reg.get_smoke_config("whisper-tiny"), num_heads=2, num_kv_heads=2)
+    rng = np.random.default_rng(5)
+    batch = {"frames": torch.from_numpy(rng.standard_normal((4, 16, cfg.d_model))
+                                        .astype(np.float32)),
+             "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 8)).astype(np.int32)),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 8)).astype(np.int32))}
+    loss, grads = loss_and_grads(cfg, init_train_state(cfg, 0, "cpu").params, batch)
+    np.testing.assert_allclose(got["loss"], float(loss), rtol=LOSS_RTOL)
+    for k, gw in grads.items():
+        assert _rel_l2(got["grads"][k], gw.numpy()) <= GRAD_RL2, k
+
+
+def test_one_by_four_uneven_vocab_shards(monkeypatch, world):
+    """whisper (2 heads) with a vocab of 259 on the (1, 4) mesh: the 4
+    model ranks do not divide it, so the tied embedding is replicated and
+    each rank computes its columns of the unembed, 65, 65, 65 and 64 of
+    them. Every rank must agree on the logits' global shape, or the
+    vocab-parallel loss takes the last rank's slice from the wrong offset.
+    Loss and gradients against the one-device port."""
+    from repro_torch.configs import registry as reg
+    from repro_torch.train.train_step import init_train_state, loss_and_grads
+
+    got = world[0]["uneven_vocab"]
+    _f32(monkeypatch)
+    cfg = dataclasses.replace(reg.get_smoke_config("whisper-tiny"), num_heads=2, num_kv_heads=2,
+                              vocab_size=UNEVEN_VOCAB)
+    rng = np.random.default_rng(5)
+    batch = {"frames": rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32),
+             "tokens": rng.integers(0, cfg.vocab_size, (4, 8)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (4, 8)).astype(np.int32)}
+    # the labels reach the last rank's slice (195..258) and the others
+    assert (batch["labels"] >= 195).any() and (batch["labels"] < 195).any()
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, grads = loss_and_grads(cfg, init_train_state(cfg, 0, "cpu").params, batch)
+    np.testing.assert_allclose(got["loss"], float(loss), rtol=LOSS_RTOL)
+    for k, gw in grads.items():
+        assert _rel_l2(got["grads"][k], gw.numpy()) <= GRAD_RL2, k
+
+
+@pytest.mark.parametrize("arch,mesh_shape", MIXERS, ids=[a for a, _ in MIXERS])
+def test_mamba_and_xlstm_on_a_mesh(monkeypatch, world, arch, mesh_shape):
+    """jamba's smoke config (its experts taken out) on the (2, 2) mesh: u
+    and z from in_proj's halves, each column-parallel, and the SSD on each
+    model rank's heads (``mamba._ssd``, B and C whole, their gradients
+    summed over the ranks). xlstm's on the (1, 4) mesh: every product
+    replicated over the model ranks, as the reference keeps its weights.
+    Loss and gradients against the one-device port."""
+    from repro_torch.configs import registry as reg
+    from repro_torch.train.train_step import init_train_state, loss_and_grads
+
+    got = world[0]["mixers"][arch]
+    _f32(monkeypatch)
+    cfg = dataclasses.replace(reg.get_smoke_config(arch), num_experts=0)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, 256, (4, 16)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    loss, grads = loss_and_grads(cfg, init_train_state(cfg, 0, "cpu").params, batch)
+    np.testing.assert_allclose(got["loss"], float(loss), rtol=LOSS_RTOL)
+    for k, gw in grads.items():
+        assert _rel_l2(got["grads"][k], gw.numpy()) <= GRAD_RL2, k

@@ -51,7 +51,8 @@ def test_cross_attention_f32(Hkv):
     x = _x((2, 7, cfg.d_model), 2, 0.5)
     mk, mv = _x((2, 11, Hkv, cfg.head_dim), 3), _x((2, 11, Hkv, cfg.head_dim), 4)
     tp = torch.nn.ParameterDict({k: L.param(T(v)) for k, v in p.items()})
-    got = A.cross_attention(cfg, tp, T(x), (T(mk), T(mv)))
+    # the port's cross_attention takes k/v as projected, [B, T, kv_dim]
+    got = A.cross_attention(cfg, tp, T(x), (T(mk).flatten(2), T(mv).flatten(2)))
     _close(got, JA.cross_attention(cfg_j, p, x, (mk, mv)))
     got = A.decode_cross_attention(cfg, tp, T(x[:, :1]), (T(mk), T(mv)))
     _close(got, JA.decode_cross_attention(cfg_j, p, x[:, :1], (mk, mv)))
