@@ -168,19 +168,22 @@
     memory; step 1's loss equals ``loss_fn`` under ``no_grad``; one more
     ``full`` step profiled (device busy share, top ops).
 14. The multi-device ``launch/`` pieces (run after phase 12, before the
-    kernels line). (a) A worker process started after the build (CUDA
-    hidden) records the dry-run of llama3.2-3b x train_4k and decode_32k,
+    kernels line). (a) Two worker processes started after the build (CUDA
+    hidden) record the dry-run of llama3.2-3b x train_4k and decode_32k,
+    xlstm-125m x train_4k (its sLSTM time scans as loop regions),
     moonshot-v1-16b-a3b x decode_32k, qwen2-72b x prefill_32k and
-    jamba-v0.1-52b x prefill_32k on the pod1 mesh (``launch.dryrun``: meta
-    DTensors on a fake world of 256 ranks, one rank's step recorded): host
-    seconds, argument/output bytes (held equal to the reference's fixture
-    where ``tests/data/dryrun`` has one), FLOPs per device (over the
-    fixture's, held within 2% of the ratio ``flops_ratio.json`` gives;
-    ``useful_ratio`` at most 1) and each cell's five largest products,
-    collectives per device. (b) llama's per-rank graph mapped on
-    16:16, fast, under ell and xla on the card (the five mapping kernels
-    launch), ``pe_of`` equal to the worker's CPU runs, J against the
-    default placement. (c) One MoE
+    jamba-v0.1-52b x prefill_32k on the pod1 mesh, and whisper-tiny x
+    train_4k on pod2 (``launch.dryrun``: meta DTensors on a fake world of
+    256 or 512 ranks, one rank's step recorded; a worker a mesh, as the
+    process group is process-global): host seconds, argument/output bytes
+    (held equal to the reference's fixture where ``tests/data/dryrun`` has
+    one), FLOPs per device (over the fixture's, held within 2% of the ratio
+    ``flops_ratio.json`` gives; ``useful_ratio`` at most 1), ``while_trips``
+    and each cell's five largest products, collectives per device. (b)
+    llama's and xlstm's per-rank graphs (xlstm's tasks and edges weighted
+    by their loop regions' trips) mapped on 16:16, fast, under ell and xla
+    on the card (the five mapping kernels launch), ``pe_of`` equal to the
+    worker's CPU runs, J against the default placement. (c) One MoE
     layer of moonshot (64 experts, top-6) and of mixtral-8x22b (8 experts,
     so each split into two d_ff shards) at full width: its 16 virtual
     shards run one after another and summed in shard order against V = 1,
@@ -2113,12 +2116,19 @@ def _train_path(dev) -> None:
 # so the KV cache is sharded over the sequence and no all-gather may move it;
 # llama3.2-3b x train_4k and qwen2-72b x prefill_32k: nor do they divide them
 # in attention, which each rank runs on its (batch row, kv group) units;
-# jamba-v0.1-52b x prefill_32k: Mamba's SSD on each rank's heads
-DRYRUN_CELLS = (("llama3.2-3b", "train_4k"), ("moonshot-v1-16b-a3b", "decode_32k"),
-                ("llama3.2-3b", "decode_32k"), ("qwen2-72b", "prefill_32k"),
-                ("jamba-v0.1-52b", "prefill_32k"))
+# jamba-v0.1-52b x prefill_32k: Mamba's SSD on each rank's heads;
+# xlstm-125m x train_4k: its sLSTM time scans recorded as loop regions;
+# whisper-tiny x train_4k on pod2 (512 ranks: the batch over pod and data),
+# recorded by a second worker, since the fake process group is process-global
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k", "pod1"), ("xlstm-125m", "train_4k", "pod1"),
+                ("moonshot-v1-16b-a3b", "decode_32k", "pod1"),
+                ("llama3.2-3b", "decode_32k", "pod1"), ("qwen2-72b", "prefill_32k", "pod1"),
+                ("jamba-v0.1-52b", "prefill_32k", "pod1"),
+                ("whisper-tiny", "train_4k", "pod2"))
 DRYRUN_TOP = 5                            # products printed per cell
-DRYRUN_MAP_CELL = ("llama3.2-3b", "train_4k")
+# the cells whose per-rank graph is mapped (on the CPU in the worker, then on
+# the card): xlstm's with its loop regions' trips on its tasks and edges
+DRYRUN_MAP_CELLS = (("llama3.2-3b", "train_4k", "pod1"), ("xlstm-125m", "train_4k", "pod1"))
 DRYRUN_FIXTURES = ROOT / "tests" / "data" / "dryrun"
 # each fixture cell's per-device FLOPs over the reference's, as measured, and
 # the relative band it is held within (tests/test_torch_dryrun.py holds the
@@ -2140,11 +2150,12 @@ MESH_LOSS_RTOL = 1e-5                     # (d) f32, one-rank mesh against ctx=N
 MESH_LEAF_RTOL = 1e-5                     # relative L2 per gradient / param leaf
 
 
-def _dryrun_worker(out_dir: str) -> int:
-    """``chip_smoke.py --dryrun-cells DIR``: record each of DRYRUN_CELLS
-    (``launch.dryrun.run_cell`` on a fake world of 256 ranks) and write its
-    record; extract DRYRUN_MAP_CELL's per-rank graph and map it on the CPU
-    under ell and xla pinned (the card's twin runs in phase 14 (b))."""
+def _dryrun_worker(out_dir: str, mesh: str) -> int:
+    """``chip_smoke.py --dryrun-cells DIR MESH``: record each of DRYRUN_CELLS
+    on MESH (``launch.dryrun.run_cell`` on a fake world of 256 or 512
+    ranks) and write its record; extract each of DRYRUN_MAP_CELLS' per-rank
+    graph and map it on the CPU under ell and xla pinned (the card's twin
+    runs in phase 14 (b))."""
     sys.path.insert(0, str(SRC))
     import numpy as np
     import torch
@@ -2156,11 +2167,13 @@ def _dryrun_worker(out_dir: str) -> int:
     from repro_torch.launch.mesh import physical_hierarchy, stop_world
     torch.set_num_threads(2)    # beside the smoke's main process and the export worker
     failed = 0
-    for arch, shape in DRYRUN_CELLS:
+    for arch, shape, mesh_ in DRYRUN_CELLS:
+        if mesh_ != mesh:
+            continue
         cell = next(c for c in SHAPES if c.name == shape)
         t0 = time.perf_counter()
         try:
-            rec = dryrun.run_cell(arch, cell, multi_pod=False, keep_graph=True)
+            rec = dryrun.run_cell(arch, cell, multi_pod=mesh == "pod2", keep_graph=True)
         except Exception as e:   # the next cell still runs; the smoke fails on it
             import traceback
             print(f"dryrun worker: {arch} x {shape} failed: {e!r}\n"
@@ -2173,13 +2186,13 @@ def _dryrun_worker(out_dir: str) -> int:
                                          if FX.collective_kind(n) == "all-gather"), default=0)
         products = {}
         for n in graph.nodes:
-            f = FX.node_flops(n) if FX.is_task(n) else 0
+            f = FX.node_flops(n) * FX.node_trips(n) if FX.is_task(n) else 0
             if f:
                 key = f"{FX._op_name(n)} " + " x ".join(
                     str(list(FX._shape(i))) for i in FX.input_nodes(n)[:2])
                 products[key] = products.get(key, 0) + f
         rec["top_products"] = sorted(products.items(), key=lambda kv: -kv[1])[:DRYRUN_TOP]
-        if (arch, shape) == DRYRUN_MAP_CELL:
+        if (arch, shape, mesh) in DRYRUN_MAP_CELLS:
             t0 = time.perf_counter()
             tg = extract_fx_graph(graph, min_tasks=2 * physical_hierarchy(False).k)
             rec["extract_s"] = time.perf_counter() - t0
@@ -2192,30 +2205,32 @@ def _dryrun_worker(out_dir: str) -> int:
                 rec[f"cpu_{backend}_s"] = time.perf_counter() - t0
                 rec[f"cpu_{backend}_J"] = r.J
                 arrays[f"pe_{backend}"] = np.asarray(r.pe_of)
-            np.savez(Path(out_dir) / f"{arch}.npz", **arrays)
+            np.savez(Path(out_dir) / f"{arch}__{shape}__{mesh}.npz", **arrays)
             rec["graph"] = {"n": tg.n, "m": tg.m, "meta": tg.meta,
                             "fingerprint": tg.fingerprint().hex()}
         del graph
-        (Path(out_dir) / f"{arch}__{shape}.json").write_text(json.dumps(rec))
-        print(f"dryrun worker: {arch} x {shape} in {rec['seconds']:.1f} s", flush=True)
+        (Path(out_dir) / f"{arch}__{shape}__{mesh}.json").write_text(json.dumps(rec))
+        print(f"dryrun worker: {arch} x {shape} x {mesh} in {rec['seconds']:.1f} s", flush=True)
     stop_world()
     return 1 if failed else 0
 
 
-def _start_dryrun(out_dir: str):
-    """Start the dry-run worker (no card: CUDA hidden from it)."""
+def _start_dryrun(out_dir: str) -> list:
+    """Start the dry-run workers, one a mesh (no card: CUDA hidden from
+    them)."""
     import os
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun-cells",
-                             out_dir], env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun-cells",
+                              out_dir, mesh], env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for mesh in sorted({c[2] for c in DRYRUN_CELLS})]
 
 
-def _dryrun_records(dev, _build, worker, out_dir: str) -> None:
-    """Phase 14 (a) and (b): the worker's records beside the reference's
-    fixtures; llama's per-rank graph mapped on 16:16, fast, under ell and
-    xla on the card, pe_of equal to the worker's CPU runs, J against the
-    default placement."""
+def _dryrun_records(dev, _build, workers, out_dir: str) -> None:
+    """Phase 14 (a) and (b): the workers' records beside the reference's
+    fixtures; llama's and xlstm's per-rank graphs mapped on 16:16, fast,
+    under ell and xla on the card, pe_of equal to the worker's CPU runs, J
+    against the default placement."""
     import numpy as np
     from repro_torch.configs.registry import get_config
     from repro_torch.core.api import SharedMapConfig, shared_map_direct
@@ -2225,21 +2240,24 @@ def _dryrun_records(dev, _build, worker, out_dir: str) -> None:
     from repro_torch.launch.mesh import physical_hierarchy
 
     t0 = time.perf_counter()
-    log, _ = worker.communicate(timeout=900)
-    if worker.returncode != 0:
-        raise AssertionError(f"dry-run worker exited {worker.returncode}: {log[-3000:]}")
-    print(f"dry-run worker: waited {time.perf_counter() - t0:.2f} s for it here", flush=True)
+    for worker in workers:
+        log, _ = worker.communicate(timeout=900)
+        if worker.returncode != 0:
+            raise AssertionError(f"dry-run worker exited {worker.returncode}: {log[-3000:]}")
+    print(f"dry-run workers: waited {time.perf_counter() - t0:.2f} s for them here", flush=True)
     ratios = json.loads(DRYRUN_FLOPS_RATIO.read_text())
-    for arch, shape in DRYRUN_CELLS:
-        rec = json.loads((Path(out_dir) / f"{arch}__{shape}.json").read_text())
+    for arch, shape, mesh in DRYRUN_CELLS:
+        rec = json.loads((Path(out_dir) / f"{arch}__{shape}__{mesh}.json").read_text())
         h_, mem = rec["hlo"], rec["memory"]
-        fx = DRYRUN_FIXTURES / f"{arch.replace('.', '_')}__{shape}__pod1.json"
+        fx = DRYRUN_FIXTURES / f"{arch.replace('.', '_')}__{shape}__{mesh}.json"
         ref = json.loads(fx.read_text()) if fx.exists() else None
-        line = (f"dry-run {arch} x {shape} x pod1 (256 fake ranks, host): {rec['seconds']:.1f} s "
+        line = (f"dry-run {arch} x {shape} x {mesh} ({rec['chips']} fake ranks, host): "
+                f"{rec['seconds']:.1f} s "
                 f"(record {rec['lower_s']} s, {h_['graph_nodes']} nodes); argument bytes "
                 f"{mem['argument_bytes']}, output {mem['output_bytes']}, alias "
                 f"{mem['alias_bytes']}, peak live {mem['temp_bytes']}; FLOPs/device "
-                f"{h_['flops_per_device']!r}; collectives {h_['num_collectives']} bytes "
+                f"{h_['flops_per_device']!r}; while_trips {h_['while_trips']}; collectives "
+                f"{h_['num_collectives']} bytes "
                 f"{h_['collective_bytes']}, the largest all-gather {rec['largest_all_gather']}; "
                 f"roofline {rec['roofline']}")
         if rec["mode"] == "decode":
@@ -2258,7 +2276,7 @@ def _dryrun_records(dev, _build, worker, out_dir: str) -> None:
                 raise AssertionError(f"dry-run {arch}: argument bytes {mem['argument_bytes']}, "
                                      f"the reference's {ref['memory']['argument_bytes']}")
             ratio = h_["flops_per_device"] / ref["hlo"]["flops_per_device"]
-            want = ratios["ratio"][f"{arch} x {shape}"]
+            want = ratios["ratio"][f"{arch} x {shape} x {mesh}"]
             if abs(ratio / want - 1) > ratios["within"]:
                 raise AssertionError(f"dry-run {arch} x {shape}: FLOPs/device ratio {ratio!r}, "
                                      f"measured {want!r} (within {ratios['within']})")
@@ -2274,7 +2292,7 @@ def _dryrun_records(dev, _build, worker, out_dir: str) -> None:
         if "graph" not in rec:
             continue
         gi = rec["graph"]
-        with np.load(Path(out_dir) / f"{arch}.npz") as a:
+        with np.load(Path(out_dir) / f"{arch}__{shape}__{mesh}.npz") as a:
             arrays = dict(a)
         tg = TaskGraph.from_edges(gi["n"], arrays["u"], arrays["v"], arrays["w"],
                                   vwgt=arrays["vwgt"], meta=gi["meta"])
@@ -2297,7 +2315,7 @@ def _dryrun_records(dev, _build, worker, out_dir: str) -> None:
             parts.append(f"{backend}: card {sec:.2f} s (CPU {rec[f'cpu_{backend}_s']:.1f} s in "
                          f"the worker), J {r.J!r}, J/J_default {r.J / j_def:.4f}, pe_of equal "
                          f"to the CPU's, launches {ln}")
-        print(f"dry-run {arch} per-rank graph: {tg.n} tasks, {tg.m} edges "
+        print(f"dry-run {arch} x {shape} per-rank graph: {tg.n} tasks, {tg.m} edges "
               f"({tg.meta['granularity']}), extraction {rec['extract_s']:.2f} s; on {h} "
               f"k={h.k}, fast; J_default {j_def!r}; " + "; ".join(parts), flush=True)
 
@@ -2518,7 +2536,7 @@ def _split_flash(dev, _build) -> None:
           f"on this card)", flush=True)
 
 
-def _launch_path(dev, _build, worker, out_dir: str) -> None:
+def _launch_path(dev, _build, workers, out_dir: str) -> None:
     """Phase 14: the multi-device launch/ pieces (see the module doc). (c)
     and (d) run first, so the worker has the longest; each part runs even
     when one before it failed, and the phase then raises the first error."""
@@ -2528,7 +2546,7 @@ def _launch_path(dev, _build, worker, out_dir: str) -> None:
     t0 = time.perf_counter()
     parts = (("(c)", lambda: _moe_parallel(dev)), ("(d)", lambda: _mesh_one_rank(dev, _build)),
              ("(e)", lambda: _split_flash(dev, _build)),
-             ("(a)+(b)", lambda: _dryrun_records(dev, _build, worker, out_dir)))
+             ("(a)+(b)", lambda: _dryrun_records(dev, _build, workers, out_dir)))
     errors, took = [], []
     for name, part in parts:
         t = time.perf_counter()
@@ -2589,7 +2607,8 @@ def main() -> int:
     atexit.register(exports.kill)   # nothing once it has ended
     dryrun_dir = tempfile.TemporaryDirectory()   # phase 14 (a)'s records, made meanwhile
     dryruns = _start_dryrun(dryrun_dir.name)
-    atexit.register(dryruns.kill)
+    for worker in dryruns:
+        atexit.register(worker.kill)
     for source in ("flash_attention.cu", "lp_gain.cu", "contract_edges.cu", "hem_propose.cu",
                    "mapcost.cu", "powf.cu"):
         for line in _build.ptxas_report(source):
@@ -3064,5 +3083,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--export-cells"]:
         sys.exit(_export_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--dryrun-cells"]:
-        sys.exit(_dryrun_worker(sys.argv[2]))
+        sys.exit(_dryrun_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -426,14 +426,16 @@ def _build_fx(graph, granularity: str) -> TaskGraph:
     tid = {r: i for i, r in enumerate(roots)}
     vwgt = np.zeros(len(roots), np.float64)
     for t in tasks:
-        vwgt[tid[group[t]]] += FX.node_flops(t)
+        vwgt[tid[group[t]]] += FX.node_flops(t) * FX.node_trips(t)
     vwgt = np.maximum(vwgt, 1.0)
 
     edges: dict[tuple[int, int], float] = defaultdict(float)
     for t in tasks:
         b = tid[group[t]]
         # a collective's payload re-crosses the network: its per-rank share
-        # rides on top of its in-edges' dataflow weight
+        # rides on top of its in-edges' dataflow weight; a loop region's
+        # task reads its operands once per trip
+        trips = FX.node_trips(t)
         share = 0.0
         if FX.collective_kind(t) is not None:
             share = FX.collective_bytes(t) / FX.collective_group_size(t)
@@ -441,7 +443,7 @@ def _build_fx(graph, granularity: str) -> TaskGraph:
             prods = resolve(i)
             if not prods:
                 continue
-            per = (FX.node_bytes(i) + share) / len(prods)
+            per = (FX.node_bytes(i) + share) * trips / len(prods)
             for p in prods:
                 a = tid[group[p]]
                 if a != b and per > 0.0:

@@ -17,7 +17,7 @@ and compiles the SPMD program, the port starts torch's fake process group
 production ``DeviceMesh`` on it, places meta DTensors (params, moments,
 batch, cache) by ``launch/shardings.py`` and runs ONE rank's step eagerly
 on them, recording its local ATen ops plus ``_c10d_functional``
-collectives (``fx_analysis.record_local``). Nothing is allocated and no
+collectives (``fx_analysis.LocalRecorder``). Nothing is allocated and no
 device is touched; the fake group's collectives move no data, so the
 record gives shapes, bytes and counts, never a value.
 
@@ -33,7 +33,10 @@ The record has the reference's keys:
 * ``cost_analysis`` / ``hlo``: per-rank FLOPs (``fx_analysis``), an HBM
   traffic estimate (each op's result written and read once, a matrix
   product's operands read), collective payload bytes and counts by kind.
-  The layer loop is unrolled in the trace, so no trip count scales it.
+  The layer loop is unrolled in the trace; the sLSTM's time scan is a
+  loop region of the recorder (``LocalRecorder.scan``): three iterations
+  recorded, the middle one scaled by its trips, backward included, and
+  ``hlo.while_trips`` lists each region's trip count.
 * ``roofline`` on the H100 SXM's peak rates (dense bf16 tensor cores, HBM3,
   NVLink per direction), and ``useful_ratio`` = model FLOPs / traced FLOPs.
 * ``lower_s`` (the trace) and ``compile_s`` (reading the traced graph).
@@ -115,15 +118,22 @@ def _meta_params(cfg, V: int, dtype=None):
     return params
 
 
+def _reads_pos(cfg) -> bool:
+    """Whether a decode step reads its position: an attention layer's cache
+    slot, or whisper's positional embedding."""
+    return cfg.is_encoder_decoder or any(k.split("+")[0] == "attn" for k in cfg.layer_kinds())
+
+
 def _state_tree(state: TrainState) -> dict:
     return {"params": dict(state.params.named_parameters()), "mu": state.opt.mu,
             "nu": state.opt.nu, "step": state.opt.step}
 
 
-def lower_cell(cfg, cell, mesh, ctx, serve_bf16: bool = False):
+def lower_cell(cfg, cell, mesh, ctx, serve_bf16: bool = False, scan_regions: bool = True):
     """Record one rank's step of ``cell``. Returns ``(graph, trip_hints,
-    info)``; ``info`` holds ``argument_bytes``, ``output_bytes`` and
-    ``alias_bytes``."""
+    info)``; ``info`` holds ``argument_bytes``, ``output_bytes``,
+    ``alias_bytes`` and ``while_trips`` (the trips of each loop region
+    recorded; ``scan_regions=False`` records every iteration instead)."""
     V = ctx.model_size
     specs = M.input_specs(cfg, cell.seq_len, cell.global_batch, cell.mode)
     bspecs = SH.batch_specs(cfg, specs, ctx)
@@ -160,10 +170,15 @@ def lower_cell(cfg, cell, mesh, ctx, serve_bf16: bool = False):
             def run(b):
                 return M.decode_fn(cfg, params, b["tokens"], cache, pos, ctx)
             alias = _local_bytes(cache)
-            args_bytes = alias + 4   # + pos
+            # + pos, where the step reads it (jit drops it where no layer
+            # attends: xLSTM's recurrent decode)
+            args_bytes = alias + (4 if _reads_pos(cfg) else 0)
         dropped = {"params": dict(params.named_parameters()), "batch": batch}
 
-    graph, _ = FX.record_local(run, batch)
+    rec = FX.LocalRecorder(scan_regions=scan_regions)
+    with rec:
+        result = run(batch)
+    graph = rec.finish(result)
     # of the batch and the serving params, only the leaves the step reads
     # (jit drops an unused argument: prefill's labels, whisper's decoder in
     # its prefill and its encoder in decode)
@@ -176,20 +191,21 @@ def lower_cell(cfg, cell, mesh, ctx, serve_bf16: bool = False):
     out_bytes = alias + sum(FX.node_bytes(n) for n in FX.input_nodes(out)
                             if n.op == "call_function" and not FX._writes_in_place(n))
     return graph, hints, {"argument_bytes": int(args_bytes), "output_bytes": int(out_bytes),
-                       "alias_bytes": int(alias)}
+                          "alias_bytes": int(alias), "while_trips": rec.loops}
 
 
 def hbm_bytes(graph) -> float:
     """Per-rank HBM traffic estimate: each task's result written and read
-    once, a matrix product's operands read as well."""
+    once, a matrix product's operands read as well; each times its trips."""
     total = 0.0
     for n in graph.nodes:
         if not FX.is_task(n) or FX.collective_kind(n) is not None:
             continue
         if FX.node_flops(n):
-            total += sum(FX.node_bytes(i) for i in FX.input_nodes(n)) + FX.node_bytes(n)
+            moved = sum(FX.node_bytes(i) for i in FX.input_nodes(n)) + FX.node_bytes(n)
         else:
-            total += 2 * FX.node_bytes(n)
+            moved = 2 * FX.node_bytes(n)
+        total += moved * FX.node_trips(n)
     return total
 
 
@@ -235,7 +251,7 @@ def run_cell(arch: str, cell, multi_pod: bool, knobs: dict | None = None,
         "collective_total": coll_total,
         "num_collectives": coll_count,
         "hbm_bytes": hbm,
-        "while_trips": [],
+        "while_trips": info["while_trips"],
         "trip_hints": hints,
         "graph_nodes": len(graph.nodes),
     }

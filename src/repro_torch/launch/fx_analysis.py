@@ -26,7 +26,7 @@ node. Nothing here runs the graph or needs a device.
   produce nothing. Every other call is a task. A task is *pointwise* when
   its ATen op carries ``torch.Tag.pointwise``, or is a cast or a mask
   (``to``, ``where``, ``&``...): the ops XLA's loop fusion merges.
-* **Collectives.** A graph recorded per rank (``record_local`` of a step
+* **Collectives.** A graph recorded per rank (``LocalRecorder`` over a step
   on DTensors, ``launch/dryrun.py``) holds local ATen ops and
   ``_c10d_functional`` collectives, the port's counterpart of the SPMD
   HLO. A collective (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
@@ -34,6 +34,12 @@ node. Nothing here runs the graph or needs a device.
   ``collective_kind`` names, over a group of ``collective_group_size``
   ranks; its payload is its input's bytes (``analyze_hlo``'s operand
   bytes). ``wait_tensor`` is transparent.
+* **Loop regions.** A node recorded inside a scan's loop region
+  (``LocalRecorder.scan``) stands for every iteration the region replaces:
+  ``meta["trips"]`` (1 when absent) multiplies its FLOPs, collective bytes
+  and counts and HBM traffic (``node_trips``), as ``hlo_analysis`` scales a
+  ``while`` body by its trip count; ``peak_live_bytes`` counts its buffers
+  once, as a loop body's are reused.
 """
 from __future__ import annotations
 
@@ -213,22 +219,29 @@ def node_flops(node) -> int:
     return 0
 
 
+def node_trips(node) -> int:
+    """How many times ``node`` runs: its loop region's trips, else 1."""
+    return node.meta.get("trips", 1)
+
+
 def total_flops(graph: torch.fx.Graph) -> float:
     """The FLOPs of every task of ``graph`` (``hlo_analysis.analyze_hlo``'s
-    ``flops`` term)."""
-    return float(sum(node_flops(n) for n in graph.nodes if is_task(n)))
+    ``flops`` term), each times its trips."""
+    return float(sum(node_flops(n) * node_trips(n) for n in graph.nodes if is_task(n)))
 
 
 def collective_totals(graph: torch.fx.Graph) -> tuple[dict, dict]:
     """({kind: payload bytes}, {kind: count}) over the graph's collectives,
-    as ``analyze_hlo``'s ``collective_bytes`` and ``num_collectives``."""
+    as ``analyze_hlo``'s ``collective_bytes`` and ``num_collectives``; a
+    collective in a loop region counts once per trip."""
     nbytes: dict[str, float] = {}
     count: dict[str, int] = {}
     for n in graph.nodes:
         kind = collective_kind(n)
         if kind is not None:
-            nbytes[kind] = nbytes.get(kind, 0.0) + float(collective_bytes(n))
-            count[kind] = count.get(kind, 0) + 1
+            trips = node_trips(n)
+            nbytes[kind] = nbytes.get(kind, 0.0) + float(collective_bytes(n)) * trips
+            count[kind] = count.get(kind, 0) + trips
     return nbytes, count
 
 
@@ -265,6 +278,50 @@ def _writes_in_place(node) -> bool:
                for r in node.target._schema.returns)
 
 
+def _sequence_nr() -> int:
+    """The autograd sequence number the next node of this thread gets
+    (nodes are numbered in the order they are made)."""
+    with torch.enable_grad():
+        leaf = torch.zeros((), requires_grad=True)
+        return (leaf * 1).grad_fn._sequence_nr() + 1
+
+
+class _ScanIn(torch.autograd.Function):
+    """The rows of ``xs`` (along ``dim``) that the recorded iterations read:
+    the first, the middle and the last ``chunk``. Backward stacks their
+    gradients into ``xs``'s, the middle's once per trip: the one ``stack``
+    that the backward of ``xs.unbind(dim)`` makes when every row runs."""
+
+    @staticmethod
+    def forward(ctx, xs, dim, trips, c):
+        ctx.dim, ctx.trips, ctx.c = dim, trips, c
+        S = xs.shape[dim]
+        return tuple(xs.select(dim, i) for i in [*range(2 * c), *range(S - c, S)])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        c = ctx.c
+        every = [*grads[:c], *grads[c:2 * c] * (ctx.trips - 2), *grads[2 * c:]]
+        return torch.stack(every, ctx.dim), None, None, None
+
+
+class _ScanOut(torch.autograd.Function):
+    """The scan's per-step outputs stacked along ``dim`` as every
+    iteration's would be (the middle iteration's once per trip: one
+    ``stack``, as when every step runs). Backward hands each recorded step
+    its row of the gradient (the views of ``unbind``)."""
+
+    @staticmethod
+    def forward(ctx, dim, trips, c, *outs):
+        ctx.dim, ctx.c = dim, c
+        return torch.stack([*outs[:c], *outs[c:2 * c] * (trips - 2), *outs[2 * c:]], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, c = g.unbind(ctx.dim), ctx.c
+        return None, None, None, *rows[:2 * c], *rows[len(rows) - c:]
+
+
 class LocalRecorder(TorchDispatchMode):
     """Records the LOCAL ATen ops (and ``_c10d_functional`` collectives)
     that a step on DTensors runs on one rank into a ``torch.fx.Graph``.
@@ -273,18 +330,76 @@ class LocalRecorder(TorchDispatchMode):
     DTensor dispatches it as it would, and the local ops it runs on the
     shards come back here and are recorded: one ``call_function`` node per
     op that touches a meta tensor (the shards of a dry-run are meta; the
-    host-side tensor ops of DTensor's own planning are not the program),
+    host-side tensor ops of DTensor's own planning, and the fake tensors it
+    runs an op on the first time it plans it, are not the program),
     with the result as ``meta["val"]``. A tensor first seen as an argument
     becomes a placeholder; an in-place op's result is its node from then
     on. Unlike ``make_fx`` it keeps DTensor's sharding-propagation cache
-    on, so a full-width step records in seconds."""
+    on, so a full-width step records in seconds.
 
-    def __init__(self):
+    A model's time scan (the sLSTM's) asks the recorder for a loop region
+    (``scan``) and records three of its iterations, the middle one with
+    the trips of all the iterations between the first and the last
+    (``scan_regions=False`` records every iteration, as the step runs).
+    ``loops`` lists the trip count of each loop recorded as a region, in
+    the order they run: each forward (a remat's recompute included) and
+    each backward, as XLA's ``while`` loops of a scan and of its
+    gradient."""
+
+    def __init__(self, scan_regions: bool = True):
         super().__init__()
         from torch.utils.weak import WeakIdKeyDictionary
         self.graph = torch.fx.Graph()
         self._node = WeakIdKeyDictionary()
         self._inputs = 0
+        self.scan_regions = scan_regions
+        self.loops: list[int] = []
+        self._trips = 1                  # the forward ops recorded now run this often
+        # [first, end) autograd sequence numbers of a region's nodes, their
+        # trips and the loop's: their backward ops run as often
+        self._regions: list[tuple[int, int, int, int]] = []
+        self._backward_seen: set[int] = set()
+
+    def scan(self, body, carry, xs, dim: int, chunk: int):
+        """``body(carry, rows) -> (carry, outs)`` over ``xs`` cut along
+        ``dim`` into iterations of ``chunk`` rows (``rows``: ``chunk``
+        slices; ``outs``: one tensor per row). Returns ``(carry, y)``,
+        ``y`` the outs stacked along ``dim``, as the plain loop gives them.
+
+        The first and the last iteration are recorded as they run; the
+        middle one stands for the trips - 2 between them: its ops, and
+        (through autograd's sequence numbers) their backward ops, carry
+        ``meta["trips"]``. So the record counts what every iteration
+        would, backward and remat included, from three iterations' ops."""
+        trips = xs.shape[dim] // chunk
+        self.loops.append(trips)
+        rows = _ScanIn.apply(xs, dim, trips, chunk)
+        carry, first = body(carry, rows[:chunk])
+        lo, self._trips = _sequence_nr(), trips - 2
+        try:
+            carry, middle = body(carry, rows[chunk:2 * chunk])
+        finally:
+            self._trips = 1
+        self._regions.append((lo, _sequence_nr(), trips - 2, trips))
+        carry, last = body(carry, rows[2 * chunk:])
+        return carry, _ScanOut.apply(dim, trips, chunk, *first, *middle, *last)
+
+    def _op_trips(self) -> int:
+        """The trips of the op being recorded: the region's forward, or a
+        backward op of a node that a region made."""
+        if self._trips != 1 or not self._regions or torch.is_grad_enabled():
+            return self._trips
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return 1
+        seq = node._sequence_nr()
+        for i, (lo, end, trips, loop) in enumerate(self._regions):
+            if lo <= seq < end:
+                if i not in self._backward_seen:
+                    self._backward_seen.add(i)
+                    self.loops.append(loop)
+                return trips
+        return 1
 
     def _arg(self, a):
         if not isinstance(a, torch.Tensor):
@@ -302,6 +417,7 @@ class LocalRecorder(TorchDispatchMode):
         return nd
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
         from torch.distributed.tensor import DTensor
         from torch.utils._pytree import tree_flatten, tree_map
         kwargs = kwargs or {}
@@ -311,11 +427,14 @@ class LocalRecorder(TorchDispatchMode):
         out = func(*args, **kwargs)
         outs, _ = tree_flatten(out)
         if not any(isinstance(t, torch.Tensor) and t.device.type == "meta"
-                   for t in flat + outs):
+                   for t in flat + outs) or any(isinstance(t, FakeTensor) for t in flat):
             return out
         nd = self.graph.call_function(func, tree_map(self._arg, args),
                                       tree_map(self._arg, kwargs))
         nd.meta["val"] = out
+        trips = self._op_trips()
+        if trips != 1:
+            nd.meta["trips"] = trips
         if isinstance(out, torch.Tensor):
             self._node[out] = nd
         elif isinstance(out, (tuple, list)):   # items get a getitem node when used
@@ -335,12 +454,3 @@ class LocalRecorder(TorchDispatchMode):
             return self._arg(t) if isinstance(t, torch.Tensor) else t
         self.graph.output(tree_map(local, result))
         return self.graph
-
-
-def record_local(fn, *args, **kwargs) -> tuple[torch.fx.Graph, object]:
-    """``(graph, result)``: ``fn(*args, **kwargs)`` run once, eagerly, with
-    its local ops recorded by ``LocalRecorder``."""
-    rec = LocalRecorder()
-    with rec:
-        result = fn(*args, **kwargs)
-    return rec.finish(result), result

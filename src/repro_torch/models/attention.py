@@ -220,14 +220,20 @@ def _rank_share(cfg: ModelConfig, fn, ql, kl, vl, *rest, kinds, rope, M: int, m:
     read it, so GQA is read in place. The ``b * Hkv`` units, batch row
     major, are split over the ranks in ``torch.chunk``'s order: unevenly
     where they do not divide ``M`` (the last ranks may hold fewer, or
-    none). A rank's units are laid out as a batch of their own, q ``[u, S,
-    H/Hkv, Dh]`` against k/v ``[u, S, 1, Dh]``, moved there from the column
-    shards by one all-to-all each (``_unit_plan``) and back the same way.
-    RoPE turns q and k once they are in that layout."""
+    none). Where there are fewer units than ranks, ``M`` a multiple of
+    them, and ``rest`` holds the masks to cut (``_sdpa``; flash takes
+    queries and keys of one length), each unit goes to ``r = M / units``
+    ranks, and each of them attends one ``S / r`` chunk of its queries
+    (``_query_split``), so that no model rank idles. A rank's units are laid
+    out as a batch of their own, q ``[u, S, H/Hkv, Dh]`` against k/v ``[u,
+    S, 1, Dh]``, moved there from the column shards by one all-to-all each
+    (``_unit_plan``) and back the same way. RoPE turns q and k once they
+    are in that layout."""
     G, Dh = cfg.num_kv_heads, cfg.head_dim
     rep = cfg.num_heads // G
     whole = _whole_heads(cfg, M)
     Bl = ql.shape[0]
+    r = 1 if whole or not rest else _query_split(Bl * G, M, ql.shape[1])
 
     def to_share(t, kind, heads):    # heads: query heads per kv group, or 1
         S = t.shape[1]
@@ -236,10 +242,13 @@ def _rank_share(cfg: ModelConfig, fn, ql, kl, vl, *rest, kinds, rope, M: int, m:
         W = heads * Dh
         if kind == "rep":
             units = t.reshape(Bl, S, G, W).permute(0, 2, 1, 3).reshape(Bl * G, S, W)
-            lo, hi = _chunk_range(Bl * G, M, m)
+            lo, hi = _unit_range(Bl * G, M, m, r)
             return units[lo:hi].reshape(hi - lo, S, heads, Dh)
-        plan = _unit_plan(Bl, G, W, M, m)
-        rows = yield _col_rows(t, plan), plan.recv, plan.send
+        plan = _unit_plan(Bl, G, W, M, m, r)
+        rows = _col_rows(t, plan)
+        if plan.send_order is not None:     # each row to the r ranks of its unit
+            rows = rows.index_select(0, _index(plan.send_order, rows.device))
+        rows = yield rows, plan.recv, plan.send
         return _rows_to_units(rows, plan, W, heads, Dh)
 
     qs = yield from to_share(ql, kinds[0], rep)
@@ -247,10 +256,13 @@ def _rank_share(cfg: ModelConfig, fn, ql, kl, vl, *rest, kinds, rope, M: int, m:
     vs = yield from to_share(vl, kinds[2], 1)
     if rope is not None:
         qs, ks = apply_rope(qs, *rope), apply_rope(ks, *rope)
+    if r > 1:                               # this rank's chunk of the queries
+        lo, hi = _chunk_range(qs.shape[1], r, m % r)
+        qs, rest = qs[:, lo:hi], tuple(t[:, lo:hi] for t in rest)
     out = fn(qs, ks, vs, *rest) if qs.shape[0] else qs
     if whole:
         return out.reshape(Bl, out.shape[1], -1)
-    plan = _unit_plan(Bl, G, rep * Dh, M, m)
+    plan = _unit_plan(Bl, G, rep * Dh, M, m, r)
     rows = yield _unit_rows(out, plan), plan.back_recv, plan.back_send
     return _rows_to_cols(rows, plan, Bl)
 
@@ -322,11 +334,12 @@ def _unit_rows(out, plan):
 
 def _rows_to_cols(rows, plan, B: int):
     """The rows received back from every rank's units -> the column shard
-    ``[B, S, c]``."""
-    S, a = rows.shape[1], plan.atom
+    ``[B, S, c]`` (``plan.r`` query chunks a row, in order, where units
+    are split by queries)."""
+    Sc, a, r = rows.shape[1], plan.atom, plan.r
     rows = rows.index_select(0, _index(plan.back_gather, rows.device))
-    n = len(plan.back_gather) // B
-    return rows.reshape(B, n, S, a).permute(0, 2, 1, 3).reshape(B, S, n * a)
+    n = len(plan.back_gather) // (B * r)
+    return rows.reshape(B, n, r * Sc, a).permute(0, 2, 1, 3).reshape(B, r * Sc, n * a)
 
 
 def _index(ix: tuple, device):
@@ -339,8 +352,24 @@ def _chunk_range(n: int, parts: int, i: int) -> tuple[int, int]:
     return min(i * c, n), min((i + 1) * c, n)
 
 
+def _query_split(U: int, M: int, S: int) -> int:
+    """The ranks that share one of ``U`` units, each taking a chunk of its
+    ``S`` queries: ``M / U`` where there are fewer units than ``M`` ranks,
+    ``M`` a multiple of them and ``S`` of the chunks; else 1."""
+    r = M // U if 0 < U < M and M % U == 0 else 1
+    return r if S % r == 0 else 1
+
+
+def _unit_range(U: int, M: int, m: int, r: int) -> tuple[int, int]:
+    """Rank ``m``'s units of ``U`` (``r`` ranks a unit, or ``torch.chunk``'s
+    order over the ``M`` ranks where ``r`` is 1)."""
+    return (m // r, m // r + 1) if r > 1 else _chunk_range(U, M, m)
+
+
 class _UnitPlan(NamedTuple):
     atom: int           # columns moved as one piece
+    r: int              # ranks a unit (each its chunk of the queries)
+    send_order: tuple | None    # a source's rows -> sent, grouped by rank (r > 1)
     send: tuple         # rows sent to each model rank
     recv: tuple         # rows received from each
     gather: tuple       # received rows -> the units' rows, in order
@@ -351,49 +380,55 @@ class _UnitPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def _unit_plan(B: int, G: int, W: int, M: int, m: int) -> _UnitPlan:
+def _unit_plan(B: int, G: int, W: int, M: int, m: int, r: int = 1) -> _UnitPlan:
     """Model rank ``m``'s all-to-all between a tensor's column shards
     (``G * W`` columns over ``M`` ranks in ``torch.chunk``'s order) and its
     share of the ``B * G`` units (batch row b, kv group g: columns ``[g*W,
-    (g+1)*W)`` of row b, over the ranks in ``torch.chunk``'s order). A row
-    moved is one batch row's ``atom`` columns (the largest width that
-    divides every shard and group boundary) at every position. A source's
-    rows, batch row major, go to nondecreasing units, so each source sends
-    them in its own order."""
+    (g+1)*W)`` of row b, over the ranks in ``torch.chunk``'s order, or
+    ``r`` ranks a unit, ``_unit_range``). A row moved is one batch row's
+    ``atom`` columns (the largest width that divides every shard and group
+    boundary) at every position (back: at every position of the rank's
+    query chunk). A source's rows, batch row major, go to nondecreasing
+    units, so where ``r`` is 1 each source sends them in its own order;
+    else each row goes to the ``r`` ranks of its unit (``send_order``) and
+    comes back from them in ``r`` chunks."""
     C, U = G * W, B * G
     cc, cu = -(-C // M), -(-U // M)
     atom = math.gcd(cc, W)
 
-    def rows(r):            # (b, atom) of source r's column shard, in order
-        lo, hi = _chunk_range(C, M, r)
+    def rows(s):            # (b, atom) of source s's column shard, in order
+        lo, hi = _chunk_range(C, M, s)
         return [(b, j) for b in range(B) for j in range(lo // atom, hi // atom)]
 
-    def units(r):           # rank r's rows, unit by unit
-        lo, hi = _chunk_range(U, M, r)
+    def units(d):           # rank d's rows, unit by unit
+        lo, hi = _unit_range(U, M, d, r)
         return [(u // G, j) for u in range(lo, hi)
                 for j in range(u % G * W // atom, (u % G + 1) * W // atom)]
 
-    def owner_unit(bj):
-        return (bj[0] * G + bj[1] * atom // W) // cu
+    def owners(bj):         # the ranks that attend bj's unit
+        u = bj[0] * G + bj[1] * atom // W
+        return range(u * r, (u + 1) * r) if r > 1 else (u // cu,)
 
     def owner_col(bj):
         return bj[1] * atom // cc
 
-    src, mine = [rows(r) for r in range(M)], units(m)
-    send = tuple(sum(owner_unit(bj) == r for bj in src[m]) for r in range(M))
-    recv = tuple(sum(owner_unit(bj) == m for bj in src[r]) for r in range(M))
-    at = {bj: i for i, bj in enumerate(bj for r in range(M) for bj in src[r]
-                                       if owner_unit(bj) == m)}
+    src, mine = [rows(s) for s in range(M)], units(m)
+    order = tuple(i for d in range(M) for i, bj in enumerate(src[m]) if d in owners(bj))
+    send = tuple(sum(d in owners(bj) for bj in src[m]) for d in range(M))
+    recv = tuple(sum(m in owners(bj) for bj in src[s]) for s in range(M))
+    at = {bj: i for i, bj in enumerate(bj for s in range(M) for bj in src[s]
+                                       if m in owners(bj))}
     gather = tuple(at[bj] for bj in mine)
     # the units' rows go back grouped by column shard (a stable sort)
     back_order = tuple(sorted(range(len(mine)), key=lambda i: owner_col(mine[i])))
-    back_send = tuple(sum(owner_col(bj) == r for bj in mine) for r in range(M))
-    back_recv = tuple(sum(owner_col(bj) == m for bj in units(r)) for r in range(M))
-    at = {bj: i for i, bj in enumerate(bj for r in range(M)
-                                       for bj in sorted(units(r), key=owner_col)
-                                       if owner_col(bj) == m)}
-    back_gather = tuple(at[bj] for bj in src[m])
-    return _UnitPlan(atom, send, recv, gather, back_order, back_send, back_recv, back_gather)
+    back_send = tuple(sum(owner_col(bj) == d for bj in mine) for d in range(M))
+    back_recv = tuple(sum(owner_col(bj) == m for bj in units(s)) for s in range(M))
+    at = {sbj: i for i, sbj in enumerate((s, bj) for s in range(M)
+                                         for bj in sorted(units(s), key=owner_col)
+                                         if owner_col(bj) == m)}
+    back_gather = tuple(at[s, bj] for bj in src[m] for s in owners(bj))
+    return _UnitPlan(atom, r, order if r > 1 else None, send, recv, gather, back_order,
+                     back_send, back_recv, back_gather)
 
 
 def _head_spec(cfg: ModelConfig, ctx) -> tuple:

@@ -46,7 +46,8 @@ class ShardCtx:
     use_flash: bool = False        # attention through the flash kernel
     # (kernels/flashattn.py): no [B, H, S, S] logits in device memory
     slstm_chunk: int = 1           # sLSTM timesteps per scan iteration of
-    # the reference; the port steps one position at a time whatever it is
+    # the reference; run, the port steps one position at a time whatever it
+    # is; the dry-run's recorder counts S / slstm_chunk iterations of it
 
     def __post_init__(self):
         if self.remat not in ("full", "dots", "none"):

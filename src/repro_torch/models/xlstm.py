@@ -7,7 +7,9 @@ associative scan (``layers.associative_scan``); its three-operand einsums
 are two-operand products here, in an order whose intermediates stay at
 ``[B, nc, c, c, H]`` or ``[B, nc, H, P, P]``. sLSTM's memory mixing is
 sequential: one step per position, a Python loop (the reference's
-``lax.scan``), so on the card it is bound by the host's launches.
+``lax.scan``), so on the card it is bound by the host's launches; the
+dry-run's recorder counts the loop from three recorded iterations
+(``launch.fx_analysis.LocalRecorder.scan``).
 Stabilisation uses the xLSTM m-state in log space, clipped for the
 chunkwise weights.
 """
@@ -20,7 +22,7 @@ from torch import nn
 
 from .config import ModelConfig
 from .layers import associative_scan, dense_init, full_param, log_sigmoid, rmsnorm
-from .sharding import dense
+from .sharding import dense, is_dtensor, run_local
 
 CLIP = 30.0
 
@@ -39,6 +41,20 @@ def _heads(cfg: ModelConfig) -> tuple[int, int]:
 
 def _clip(x):
     return torch.clamp(x, -CLIP, CLIP)
+
+
+def _cumsum(x, dim: int):
+    """``torch.cumsum`` along a dim that no mesh axis shards; on a DTensor,
+    on each rank's shard (torch 2.11's DTensor has no rule for ``flip``,
+    which the cumsum's backward runs)."""
+    if not is_dtensor(x):
+        return torch.cumsum(x, dim)
+    from torch.distributed.tensor import Shard
+    pl = tuple(x.placements)
+    if any(isinstance(p, Shard) and p.dim % x.ndim == dim % x.ndim for p in pl):
+        raise ValueError(f"cumsum along dim {dim}, which {pl} shards")
+    return run_local(lambda t: torch.cumsum(t, dim), x.device_mesh, (x,), (pl,), (pl,), pl,
+                     tuple(x.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -82,7 +98,7 @@ def apply_mlstm(cfg: ModelConfig, p, x, chunk: int = 256):
     kc = k.reshape(B, nc, chunk, H, P).float()
     vc = v.reshape(B, nc, chunk, H, P).float()
     lic = logi.reshape(B, nc, chunk, H)
-    cumf = torch.cumsum(logf.reshape(B, nc, chunk, H), dim=2)                  # [B,nc,c,H]
+    cumf = _cumsum(logf.reshape(B, nc, chunk, H), dim=2)                       # [B,nc,c,H]
 
     # intra-chunk: w_ij = exp(cumf_i - cumf_j + logi_j), i >= j
     Dij = cumf[:, :, :, None, :] - cumf[:, :, None, :, :] + lic[:, :, None, :, :]
@@ -195,12 +211,29 @@ def _slstm_step(cfg: ModelConfig, R, wx_t, state):
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
-def apply_slstm(cfg: ModelConfig, p, x, time_chunk: int = 1):
-    """x [B,S,D] -> [B,S,D]; sequential over time.
+def _scan_recorder(x):
+    """The dispatch mode recording this step with loop regions
+    (``launch.fx_analysis.LocalRecorder``), when one records ``x``'s meta
+    tensors; else None."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    local = x._local_tensor if is_dtensor(x) else x
+    if local.device.type != "meta":
+        return None
+    return next((m for m in _get_current_dispatch_mode_stack()
+                 if getattr(m, "scan_regions", False)), None)
 
-    ``time_chunk`` is the reference's steps per scan iteration (S must be a
-    multiple of it). Here every step runs alone whatever its value, so each
-    value gives the same result, bit for bit."""
+
+def apply_slstm(cfg: ModelConfig, p, x, time_chunk: int = 1):
+    """x [B,S,D] -> [B,S,D]; sequential over time, one step per position
+    (the reference's ``lax.scan`` of S / ``time_chunk`` iterations of
+    ``time_chunk`` steps; S must be a multiple of it).
+
+    Run, every step runs, whatever ``time_chunk`` is, so each value gives
+    the same result, bit for bit. Recorded for the dry-run (a
+    ``LocalRecorder`` over meta tensors), ``time_chunk`` is the steps of
+    one recorded iteration: the recorder's loop region holds three
+    iterations, the middle one counted for the S / ``time_chunk`` - 2
+    between the first and the last."""
     B, S, D = x.shape
     H, P = _heads(cfg)
     wx = _proj(x, p["W"], p["b"])                             # [B,S,4D]
@@ -209,11 +242,21 @@ def apply_slstm(cfg: ModelConfig, p, x, time_chunk: int = 1):
     if S % tc:
         raise ValueError(f"seq {S} must divide the sLSTM time chunk {tc}")
     R = p["R"].to(wx.dtype)
-    hs = []
-    for t in range(S):
-        state = _slstm_step(cfg, R, wx[:, t], state)
-        hs.append(state["h"])
-    y = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+
+    def steps(state, rows):
+        hs = []
+        for wx_t in rows:
+            state = _slstm_step(cfg, R, wx_t, state)
+            hs.append(state["h"])
+        return state, hs
+
+    rec = _scan_recorder(x)
+    if rec is not None and S // tc >= 3:
+        _, y = rec.scan(steps, state, wx, dim=1, chunk=tc)
+    else:
+        _, hs = steps(state, wx.unbind(1))
+        y = torch.stack(hs, dim=1)
+    y = y.reshape(B, S, D).to(x.dtype)
     y = rmsnorm(y, p["norm"])
     return _proj(y, p["wo"])
 

@@ -16,9 +16,22 @@ size is 1 and nothing is exchanged.
 """
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
+from torch.utils._pytree import tree_map
 
 CHUNK = 2048
+
+
+class CompressionState(NamedTuple):
+    residual: Any  # error-feedback residuals, same tree as the gradients
+
+
+def init_compression_state(grads) -> CompressionState:
+    """f32 zero residuals over the gradients' tree."""
+    return CompressionState(residual=tree_map(
+        lambda g: torch.zeros_like(g, dtype=torch.float32), grads))
 
 
 def quantize_int8(x: torch.Tensor, scale: torch.Tensor | None = None):

@@ -6,7 +6,9 @@ every rank's share runs in lock-step on one process
 * The units each rank attends and the column shards that come back, held
   bit for bit against the tensor split directly: evenly and unevenly in
   ``torch.chunk``'s order (ranks with fewer units, or none; column shards
-  that cut a head), for q (several query heads a group) and k/v (one).
+  that cut a head), for q (several query heads a group) and k/v (one);
+  and where there are fewer units than ranks, each unit's queries split
+  into chunks over the ranks that share it.
 * The shares' attention (RoPE, then ``_sdpa`` with a causal mask, in f64)
   put back together against the unsplit attention: from the projections'
   column shards (prefill), from replicated heads (decode on a replicated
@@ -71,15 +73,53 @@ def test_units_and_back(B, G, heads, Dh, M):
         assert torch.equal(back[m], _cols(q, M, m)), m
 
 
-@pytest.mark.parametrize("B,G,heads,Dh,M,kind", [
-    (4, 2, 2, 8, 4, "cols"),     # units from column shards (prefill)
-    (3, 2, 3, 8, 4, "cols"),     # 6 units over 4 ranks, a rank with none
-    (3, 2, 3, 8, 4, "rep"),      # units cut from replicated heads (decode)
-    (2, 4, 2, 8, 4, "cols"),     # whole heads: 8 query and 4 kv heads on 4 ranks
-    (3, 2, 3, 8, 4, "cross"),    # cross-attention: k/v of 5 positions, q of 3
+def test_query_split_units_and_back():
+    """Fewer units than ranks (qwen2-72b x prefill_32k's layout on pod2: one
+    batch row, 8 kv groups, 16 model ranks): each unit goes to M / units
+    ranks, each attending its chunk of the queries (and of the mask's
+    rows) against the unit's whole k/v; the chunks come back in order."""
+    B, G, heads, Dh, M, Sq = 1, 2, 2, 12, 4, 6
+    W = heads * Dh
+    q = torch.arange(B * Sq * G * W, dtype=torch.float64).reshape(B, Sq, G * W)
+    k, v = (-torch.arange(B * Sq * G * Dh, dtype=torch.float64).reshape(B, Sq, G * Dh) - c
+            for c in (1, 0.5))
+    mask = torch.arange(Sq * Sq).reshape(1, Sq, Sq)
+    seen = {}
+
+    def keep(m):
+        def fn(qs, ks, vs, ms):
+            seen[m] = (qs, ks, vs, ms)
+            return qs
+        return fn
+
+    back = ranks_in_turn([_rank_share(_cfg(G, heads, Dh), keep(m), _cols(q, M, m),
+                                      _cols(k, M, m), _cols(v, M, m), mask,
+                                      kinds=("cols",) * 3, rope=None, M=M, m=m)
+                          for m in range(M)])
+    for m in range(M):
+        u, rows = m // 2, slice(m % 2 * Sq // 2, (m % 2 + 1) * Sq // 2)
+        for got, t, h in zip(seen[m], (q, k, v), (heads, 1, 1)):
+            want = t.reshape(B, Sq, G, h * Dh).permute(0, 2, 1, 3).reshape(B * G, Sq, h, Dh)
+            want = want[u:u + 1]
+            assert torch.equal(got, want[:, rows] if h == heads else want), m
+        assert torch.equal(seen[m][3], mask[:, rows]), m
+        assert torch.equal(back[m], _cols(q, M, m)), m
+
+
+@pytest.mark.parametrize("B,G,heads,Dh,M,kind,Sq", [
+    (4, 2, 2, 8, 4, "cols", S),     # units from column shards (prefill)
+    (3, 2, 3, 8, 4, "cols", S),     # 6 units over 4 ranks, a rank with none
+    (3, 2, 3, 8, 4, "rep", S),      # units cut from replicated heads (decode)
+    (2, 4, 2, 8, 4, "cols", S),     # whole heads: 8 query and 4 kv heads on 4 ranks
+    (3, 2, 3, 8, 4, "cross", S),    # cross-attention: k/v of 5 positions, q of 3
+    (1, 2, 3, 8, 4, "cols", 4),     # 2 units over 4 ranks: 2 query chunks a unit
+    (1, 1, 3, 8, 4, "cols", 4),     # 1 unit over 4 ranks: a query each
+    (1, 2, 3, 8, 4, "rep", 4),      # the chunks cut from replicated heads
+    (1, 2, 3, 8, 4, "cross", 4),    # and against k/v of 5 positions
 ])
-def test_shares_equal_the_whole_attention(B, G, heads, Dh, M, kind):
+def test_shares_equal_the_whole_attention(B, G, heads, Dh, M, kind, Sq):
     cfg = _cfg(G, heads, Dh)
+    S = Sq
     T = 5 if kind == "cross" else S
     g = torch.Generator().manual_seed(0)
     q = torch.randn(B, S, G * heads * Dh, generator=g, dtype=torch.float64)

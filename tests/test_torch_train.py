@@ -363,6 +363,26 @@ def test_quantize_and_feedback_are_the_references(seed, n):
     np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
 
 
+def test_compression_state_is_the_references():
+    """f32 zero residuals over the gradients' tree, leaf for leaf."""
+    rng = np.random.default_rng(3)
+    grads = {"blocks": {"w": rng.standard_normal((3, 5)).astype(np.float32),
+                        "b": rng.standard_normal(7).astype(np.float32)},
+             "embed": [rng.standard_normal((4, 2)).astype(np.float32)]}
+    ref = JC.init_compression_state(jax.tree.map(
+        lambda a: jnp.asarray(a, jnp.bfloat16 if a.ndim == 2 else jnp.float32), grads))
+    got = C.init_compression_state(jax.tree.map(
+        lambda a: torch.from_numpy(a).to(torch.bfloat16 if a.ndim == 2 else torch.float32),
+        grads))
+    assert isinstance(got, C.CompressionState) and got._fields == ref._fields
+    ref_leaves, ref_def = jax.tree.flatten(ref.residual)
+    got_leaves, got_def = jax.tree.flatten(got.residual)
+    assert got_def == ref_def
+    for r, g in zip(ref_leaves, got_leaves):
+        assert g.dtype == torch.float32 and r.dtype == jnp.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
 def test_error_feedback_telescopes():
     """Sum of dequantized payloads + final residual == sum of raw grads."""
     rng = np.random.default_rng(0)
