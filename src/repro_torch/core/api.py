@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import spans
 from .graph import Graph, resolve_device
 from .hierarchy import Hierarchy
 from .mapping import evaluate_J, quotient_matrix, swap_refine
@@ -112,16 +113,18 @@ def shared_map_direct(g: Graph | TaskGraph, h: Hierarchy, cfg: SharedMapConfig,
     called between multisection levels; raising inside it aborts the run.
     ``resident`` overrides the planner strategies' device residency (None =
     the strategy's default); ``False`` runs the bitwise host-mirror twin."""
-    dev = resolve_device(device)
-    g = g.to_graph(device=dev) if isinstance(g, TaskGraph) else g.to(dev)
-    res = hierarchical_multisection(
-        g, h, eps=cfg.eps, preset=cfg.preset, strategy=cfg.strategy,
-        seed=cfg.seed, adaptive=cfg.adaptive, backend=cfg.backend,
-        checkpoint=checkpoint, resident=resident,
-        coarsen_telemetry=cfg.coarsen_telemetry, device=dev)
-    res.pe_of = finalize_mapping(g, h, cfg, res.pe_of, res.stats)
-    return SharedMapResult(pe_of=res.pe_of, J=evaluate_J(g, h, res.pe_of, device=dev),
-                           stats=res.stats)
+    with spans.span("map"):
+        dev = resolve_device(device)
+        g = g.to_graph(device=dev) if isinstance(g, TaskGraph) else g.to(dev)
+        res = hierarchical_multisection(
+            g, h, eps=cfg.eps, preset=cfg.preset, strategy=cfg.strategy,
+            seed=cfg.seed, adaptive=cfg.adaptive, backend=cfg.backend,
+            checkpoint=checkpoint, resident=resident,
+            coarsen_telemetry=cfg.coarsen_telemetry, device=dev)
+        with spans.span("map.finalize"):
+            res.pe_of = finalize_mapping(g, h, cfg, res.pe_of, res.stats)
+            J = evaluate_J(g, h, res.pe_of, device=dev)
+        return SharedMapResult(pe_of=res.pe_of, J=J, stats=res.stats)
 
 
 def finalize_mapping(g: Graph, h: Hierarchy, cfg: SharedMapConfig,

@@ -42,6 +42,12 @@ Transfer accounting: module-level counters (:func:`transfer_stats`,
 multisection makes: bulk uploads, array fetches (``d2h_array_fetches``)
 and per-level metadata fetches (``d2h_meta_fetches``).
 
+Spans (``core/spans.py``, recorded only while on): ``planner.plan`` (with
+``planner.gather``), ``planner.advance`` (with ``planner.split``),
+``planner.sync`` around each device->host fetch of the planner, and
+``planner.result_fetch``; one ``planner.level`` per level, from its plan to
+its advance, with the card's time between the two (``device_ns``).
+
 Salts derive from a subgraph's position in the hierarchy, not from the
 traversal order, so every strategy reproduces the reference's same
 strategy; ``queue`` equals ``naive`` and ``bucket`` equals ``naive`` bit
@@ -60,6 +66,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import spans
 from .graph import (F32, I32, Graph, assemble_padded, default_ell_deg, exact_sums,
                     padded_csr_indptr, repad_device, resolve_device, split_blocks,
                     take_lanes)
@@ -243,6 +250,16 @@ class _LaneRef:
     n: int = -1
     m: int = -1
     wsum: float = 0.0
+
+
+def _device_mark(device) -> torch.cuda.Event | None:
+    """A timing event recorded now on the card's current stream (None off
+    the card)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
 
 
 def _root_op(g: Graph, N0: int, M0: int):
@@ -477,7 +494,8 @@ class LevelPlanner:
     def __init__(self, g: Graph, h: Hierarchy, eps: float = 0.03,
                  preset: str = "eco", seed: int = 0, adaptive: bool = True,
                  backend: str = "auto", checkpoint: Callable[[], None] | None = None,
-                 strategy: str = "bucket", resident: bool | None = None):
+                 strategy: str = "bucket", resident: bool | None = None,
+                 req: int | None = None):
         if strategy not in _PLANNER_STRATEGIES:
             raise ValueError(f"unknown planner strategy {strategy!r}")
         self.h = h
@@ -491,11 +509,14 @@ class LevelPlanner:
         self.strategy = strategy
         self.bucketed = strategy == "bucket"
         self.resident = True if resident is None else bool(resident)
+        self.req = req   # the request id the planner's spans carry
         self.stats = {"partition_calls": 0, "levels": [], "strategy": strategy,
                       "resident": self.resident, "padded_vertex_work": 0,
                       "real_vertex_work": 0, "backend": self.backend}
-        self._t0 = time.time()
-        self._level_t0 = 0.0
+        self._t0 = time.perf_counter_ns()
+        self._level_t0 = 0
+        self._level_ev = None
+        self._traced_levels: list[tuple] = []   # (level, t0, t1, device events)
         self._groups: list[PlanGroup] | None = None
         self._done = False
         self._work: list = []
@@ -520,7 +541,8 @@ class LevelPlanner:
         self._current: list = [root]
 
     def _init_resident(self, g: Graph) -> None:
-        n_root, m_root = int(g.n), int(g.m)
+        with spans.span("planner.sync", req=self.req):
+            n_root, m_root = int(g.n), int(g.m)
         _acct(d2h_meta_bytes=8, d2h_meta_fetches=1)
         self.n_root = n_root
         self.N0 = _next_pow2(n_root)
@@ -543,7 +565,8 @@ class LevelPlanner:
             # host shape keys and the f64 imbalance rule need the total
             # weight: one scalar fetch (exact f32 sum for integer weights
             # below 2^24)
-            self.total_weight = float(tw)
+            with spans.span("planner.sync", req=self.req):
+                self.total_weight = float(tw)
             _acct(d2h_meta_bytes=4, d2h_meta_fetches=1)
         self._current = [_LaneRef(level=root_level, lane=0, depth=self.h.l,
                                   pe_base=0, uid=0, n=n_root, m=m_root,
@@ -563,26 +586,32 @@ class LevelPlanner:
         if self._groups is None:
             if self.checkpoint is not None:
                 self.checkpoint()   # cooperative cancellation between levels
-            if not self.resident:
-                for hg in self._current:
-                    if hg.depth == 0:
-                        self.pe_of[hg.orig_ids] = hg.pe_base
-            self._work = [w for w in self._current if w.depth > 0]
-            if not self._work:
-                self._finish()
-                return []
-            self._level_t0 = time.time()
-            if self.strategy == "device":
-                self._groups = self._plan_root_shape()
-            else:
-                self._groups = plan_level(
-                    self._work, self.h, self.eps, self.preset, self.seed,
-                    self.total_weight, self.adaptive, self.backend, self.bucketed)
-                if self.resident:
-                    for gr in self._groups:
-                        gr.resident = True
+            with spans.span("planner.plan", req=self.req):
+                self._plan_level()
+        return self._groups or []
+
+    def _plan_level(self) -> None:
+        if not self.resident:
+            for hg in self._current:
+                if hg.depth == 0:
+                    self.pe_of[hg.orig_ids] = hg.pe_base
+        self._work = [w for w in self._current if w.depth > 0]
+        if not self._work:
+            self._finish()
+            return
+        self._level_t0 = time.perf_counter_ns()
+        self._level_ev = _device_mark(self.device) if spans.enabled() else None
+        if self.strategy == "device":
+            self._groups = self._plan_root_shape()
+        else:
+            self._groups = plan_level(
+                self._work, self.h, self.eps, self.preset, self.seed,
+                self.total_weight, self.adaptive, self.backend, self.bucketed)
+            if self.resident:
+                for gr in self._groups:
+                    gr.resident = True
+                    with spans.span("planner.gather", req=self.req):
                         gr.batch, gr.batch_orig = self._gather_group(gr)
-        return self._groups
 
     def _plan_root_shape(self) -> list[PlanGroup]:
         """The ``device`` strategy's fixed-shape schedule: every level is
@@ -639,18 +668,23 @@ class LevelPlanner:
         groups = self.plan()
         if len(results) != len(groups):
             raise ValueError(f"expected {len(groups)} results, got {len(results)}")
-        if self.resident:
-            self._advance_resident(groups, results)
-        else:
-            nxt: list[_HostGraph] = []
-            for gr, parts in zip(groups, results):
-                parts = np.asarray(parts)
-                for i, hg in enumerate(gr.members):
-                    self._record(gr.N, hg.n)
-                    nxt.extend(_children_of(hg, parts[i][: hg.n], self.h))
-            self._current = nxt
+        with spans.span("planner.advance", req=self.req):
+            if self.resident:
+                self._advance_resident(groups, results)
+            else:
+                nxt: list[_HostGraph] = []
+                for gr, parts in zip(groups, results):
+                    parts = np.asarray(parts)
+                    for i, hg in enumerate(gr.members):
+                        self._record(gr.N, hg.n)
+                        nxt.extend(_children_of(hg, parts[i][: hg.n], self.h))
+                self._current = nxt
+        t1 = time.perf_counter_ns()
         self.stats["levels"].append(
-            {"graphs": len(self._work), "seconds": time.time() - self._level_t0})
+            {"graphs": len(self._work), "seconds": (t1 - self._level_t0) / 1e9})
+        if spans.enabled():
+            self._traced_levels.append((len(self.stats["levels"]) - 1, self._level_t0, t1,
+                                        self._level_ev, _device_mark(self.device)))
         self._groups = None
 
     def _advance_resident(self, groups: list[PlanGroup], results: list) -> None:
@@ -672,7 +706,8 @@ class LevelPlanner:
                 self._pe = _scatter_op(self._pe, gr.batch_orig, parts, bases, gr.N)
                 continue
             stride = int(np.prod(self.h.a[: d - 1]))
-            ch, co, ws = _split_op(gr.batch, parts, gr.batch_orig, arity, self._sent)
+            with spans.span("planner.split", req=self.req):
+                ch, co, ws = _split_op(gr.batch, parts, gr.batch_orig, arity, self._sent)
             lvl = _DeviceLevel(g=ch, orig=co, depth=d - 1)
             if self.strategy == "device":
                 nxt.extend(
@@ -686,9 +721,10 @@ class LevelPlanner:
                 continue
             # bucket/layer shapes are data-dependent: fetch the child
             # metadata (sizes + weights), NOT the arrays.
-            ns = ch.n.cpu().numpy()
-            ms = ch.m.cpu().numpy()
-            wv = ws.cpu().numpy()
+            with spans.span("planner.sync", req=self.req):
+                ns = ch.n.cpu().numpy()
+                ms = ch.m.cpu().numpy()
+                wv = ws.cpu().numpy()
             _acct(d2h_meta_bytes=ns.nbytes + ms.nbytes + wv.nbytes, d2h_meta_fetches=3)
             for i, r in enumerate(gr.members):
                 for b in range(arity):
@@ -707,17 +743,32 @@ class LevelPlanner:
     def _finish(self) -> None:
         if not self._done:
             self._done = True
-            self.stats["seconds"] = time.time() - self._t0
+            self.stats["seconds"] = (time.perf_counter_ns() - self._t0) / 1e9
 
     def result(self) -> "MultisectionResult":
         if not self._done:
             raise RuntimeError("planner has pending levels")
-        if self.resident and self.pe_of is None:
-            # THE device->host sync point: one fetch per request.
-            pe = self._pe[: self.n_root].cpu().numpy()
-            _acct(d2h_bytes=pe.nbytes, d2h_array_fetches=1)
-            self.pe_of = pe
+        with spans.span("planner.result_fetch", req=self.req):
+            if self.resident and self.pe_of is None:
+                # THE device->host sync point: one fetch per request.
+                with spans.span("planner.sync", req=self.req):
+                    pe = self._pe[: self.n_root].cpu().numpy()
+                _acct(d2h_bytes=pe.nbytes, d2h_array_fetches=1)
+                self.pe_of = pe
+        self._record_levels()
         return MultisectionResult(pe_of=self.pe_of, stats=self.stats)
+
+    def _record_levels(self) -> None:
+        """One ``planner.level`` span per level traced, with the device time
+        between its two events where it ran on the card (read after the
+        request's fetch, so no further sync waits on them)."""
+        for i, t0, t1, e0, e1 in self._traced_levels:
+            attrs = {}
+            if e0 is not None and e1 is not None:
+                e1.synchronize()
+                attrs["device_ns"] = int(e0.elapsed_time(e1) * 1e6)
+            spans.record("planner.level", t0, t1, req=self.req, level=i, **attrs)
+        self._traced_levels = []
 
 
 # ---------------------------------------------------------------------------
@@ -826,7 +877,7 @@ def hierarchical_multisection(g: Graph, h: Hierarchy, eps: float = 0.03,
 
         ctx = (h, eps, preset, seed, root.wsum, adaptive, backend, record, checkpoint, dev)
         current = [root]
-        t0 = time.time()
+        t0 = time.perf_counter_ns()
         while current:
             if checkpoint is not None:
                 checkpoint()
@@ -836,10 +887,11 @@ def hierarchical_multisection(g: Graph, h: Hierarchy, eps: float = 0.03,
             work = [hg for hg in current if hg.depth > 0]
             if not work:
                 break
-            lvl_t0 = time.time()
+            lvl_t0 = time.perf_counter_ns()
             current = _run_naive(work, ctx) if strategy == "naive" else _run_queue(work, ctx)
-            stats["levels"].append({"graphs": len(work), "seconds": time.time() - lvl_t0})
-        stats["seconds"] = time.time() - t0
+            stats["levels"].append({"graphs": len(work),
+                                    "seconds": (time.perf_counter_ns() - lvl_t0) / 1e9})
+        stats["seconds"] = (time.perf_counter_ns() - t0) / 1e9
         return MultisectionResult(pe_of=pe_of, stats=stats)
 
 

@@ -18,6 +18,13 @@ lane-local, so each lane's result is what it would be alone).
 as a second batch axis through the initial partition and the refinement
 (B * R rows); the coarsening does not depend on the restart, so they share
 it.
+
+Spans (``core/spans.py``, recorded only while on): ``partitioner.batch``
+per :func:`batched_partition` call, and under it, per chunk of lanes,
+``partitioner.coarsen``, ``partitioner.initial``, ``partitioner.refine``
+(projection and refinement up the levels, then the v-cycles) and
+``partitioner.select``. They time the host issuing the v-cycle: the
+card runs it asynchronously.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import math
 
 import torch
 
+from . import spans
 from .coarsen import _i32, coarsen_once
 from .graph import (F32, I32, Graph, as_lanes, default_ell_deg, edge_mask, exact_sums,
                     resolve_device, xla_sum)
@@ -115,20 +123,22 @@ def _partition_restarts(g: Graph, k: int, eps: torch.Tensor, preset: Preset,
 
     def shifted(d):   # every restart salt plus d, wrapped as the reference's i32
         return [[_i32(s + d) for s in row] for row in salts]
-    part = initial_partition(coarsest, k, Lmax, salt=salts,
-                             polish_rounds=preset.coarsest_polish, backend=backend,
-                             ell_deg=ell_deg)
+    with spans.span("partitioner.initial"):
+        part = initial_partition(coarsest, k, Lmax, salt=salts,
+                                 polish_rounds=preset.coarsest_polish, backend=backend,
+                                 ell_deg=ell_deg)
     B, R, N = part.shape
-    for lvl in range(len(fines) - 1, -1, -1):
-        gf = fines[lvl]
-        part = part.gather(2, maps[lvl].long()[:, None, :].expand(B, R, N))   # project
-        part = lp_refine(gf, part, k, Lmax, rounds=preset.refine_rounds,
-                         salt=shifted(1000 + lvl), backend=backend, ell_deg=ell_deg)
-        part = rebalance(gf, part, k, Lmax, rounds=4, backend=backend, ell_deg=ell_deg)
-    for cyc in range(preset.vcycles):
-        part = lp_refine(g, part, k, Lmax, rounds=preset.refine_rounds,
-                         salt=shifted(3000 + cyc), backend=backend, ell_deg=ell_deg)
-        part = rebalance(g, part, k, Lmax, rounds=4, backend=backend, ell_deg=ell_deg)
+    with spans.span("partitioner.refine"):
+        for lvl in range(len(fines) - 1, -1, -1):
+            gf = fines[lvl]
+            part = part.gather(2, maps[lvl].long()[:, None, :].expand(B, R, N))   # project
+            part = lp_refine(gf, part, k, Lmax, rounds=preset.refine_rounds,
+                             salt=shifted(1000 + lvl), backend=backend, ell_deg=ell_deg)
+            part = rebalance(gf, part, k, Lmax, rounds=4, backend=backend, ell_deg=ell_deg)
+        for cyc in range(preset.vcycles):
+            part = lp_refine(g, part, k, Lmax, rounds=preset.refine_rounds,
+                             salt=shifted(3000 + cyc), backend=backend, ell_deg=ell_deg)
+            part = rebalance(g, part, k, Lmax, rounds=4, backend=backend, ell_deg=ell_deg)
     return part
 
 
@@ -143,17 +153,19 @@ def _partition_lanes(g: Graph, k: int, eps: torch.Tensor, levels: int,
     if k == 1:
         return torch.zeros(B, N, dtype=I32, device=g.device)
     with exact_sums(g):   # the card's fast sums where every order is exact
-        fines, maps, coarsest = _coarsen_levels(g, levels, ell_deg, coarsen)
+        with spans.span("partitioner.coarsen"):
+            fines, maps, coarsest = _coarsen_levels(g, levels, ell_deg, coarsen)
         rsalts = [[_i32(_i32(s) * 131 + r * 7919) for r in range(preset.restarts)]
                   for s in salts]
         parts = _partition_restarts(g, k, eps, preset, rsalts, backend, ell_deg,
                                     fines, maps, coarsest)
-        R = parts.shape[1]
-        rows = g.rows.long()[:, None, :].expand(B, R, g.M)
-        cols = g.cols.long()[:, None, :].expand(B, R, g.M)
-        cut_edge = (parts.gather(2, rows) != parts.gather(2, cols)) & edge_mask(g)[:, None]
-        cut = xla_sum(torch.where(cut_edge, g.ewgt[:, None], 0.0)) / 2.0        # [B, R]
-        excess = batched_block_weights(g, parts, k) - _lmax(g, k, eps)[:, None, None]
+        with spans.span("partitioner.select"):   # each restart's cut and excess
+            R = parts.shape[1]
+            rows = g.rows.long()[:, None, :].expand(B, R, g.M)
+            cols = g.cols.long()[:, None, :].expand(B, R, g.M)
+            cut_edge = (parts.gather(2, rows) != parts.gather(2, cols)) & edge_mask(g)[:, None]
+            cut = xla_sum(torch.where(cut_edge, g.ewgt[:, None], 0.0)) / 2.0        # [B, R]
+            excess = batched_block_weights(g, parts, k) - _lmax(g, k, eps)[:, None, None]
     over = xla_sum(excess.clamp(min=0.0))   # fractions: XLA's order on either device
     # XLA fuses cut + 1e6 * over into one FMA: round once, as it does
     scores = fma_f32(over, torch.tensor(1e6, dtype=F32, device=g.device), cut)
@@ -230,10 +242,11 @@ def batched_partition(gs: Graph, k: int, eps: torch.Tensor, salts: list[int],
     B = len(salts)
     deg = ell_deg if ell_deg is not None else default_ell_deg(gs.N, gs.M)
     per = lanes_per_chunk(lane_bytes(gs.N, gs.M, k, levels, Preset.get(preset).restarts, deg))
-    out = [_partition_lanes(Graph(*(a[i:i + per] for a in gs)), k, eps[i:i + per], levels,
-                            preset, salts[i:i + per], backend, ell_deg, coarsen)
-           for i in range(0, B, per)]
-    return out[0] if len(out) == 1 else torch.cat(out)
+    with spans.span("partitioner.batch", lanes=B):
+        out = [_partition_lanes(Graph(*(a[i:i + per] for a in gs)), k, eps[i:i + per],
+                                levels, preset, salts[i:i + per], backend, ell_deg, coarsen)
+               for i in range(0, B, per)]
+        return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def partition_host(g: Graph, k: int, eps: float, preset: str = "eco", salt: int = 0,

@@ -52,7 +52,10 @@ load — mapping sits in the launch critical path:
   (``serve/tracker.py``) streams admission/shed/retry/deadline/cache
   counters to log, memory, or JSON-lines sinks, and a seeded
   ``repro_torch.faults.FaultInjector`` exercises the dispatch/cache/finalize
-  seams deterministically.
+  seams deterministically. With ``core.spans`` recording (off by default),
+  each request's submit, queue wait, admission and finalize are host spans
+  carrying the request's ``seq``; rounds, dispatches and the batch window
+  are spans too, shared by the requests they serve.
 
 And a durability + supervision layer (DESIGN.md §12):
 
@@ -117,6 +120,7 @@ from contextlib import contextmanager
 import numpy as np
 
 from ..core import api as capi
+from ..core import spans
 from ..core.api import SharedMapConfig, SharedMapResult
 from ..core.baselines import greedy_baseline
 from ..core.graph import Graph, from_edges, resolve_device
@@ -150,8 +154,7 @@ DEGRADE_GREEDY = 3         # greedy baseline floor (no multisection)
 @dataclasses.dataclass
 class HostView:
     """The real slices of a graph's four fields on the host (``vwgt[:n]``,
-    ``rows/cols/ewgt[:m]``), fetched once per request by :func:`host_view`;
-    ``seconds`` is what the fetch took."""
+    ``rows/cols/ewgt[:m]``), fetched once per request by :func:`host_view`."""
 
     n: int
     m: int
@@ -159,18 +162,15 @@ class HostView:
     rows: np.ndarray
     cols: np.ndarray
     ewgt: np.ndarray
-    seconds: float = 0.0
 
 
 def host_view(g: Graph) -> HostView:
     """Fetch ``g``'s real slices to the host: one copy per field (about 112
     MB at rgg 2^20 with 9.04 M directed edges)."""
-    t0 = time.perf_counter()
     n, m = int(g.n), int(g.m)
     vwgt, rows, cols, ewgt = (a[:k].cpu().numpy() for a, k in
                               ((g.vwgt, n), (g.rows, m), (g.cols, m), (g.ewgt, m)))
-    return HostView(n=n, m=m, vwgt=vwgt, rows=rows, cols=cols, ewgt=ewgt,
-                    seconds=time.perf_counter() - t0)
+    return HostView(n=n, m=m, vwgt=vwgt, rows=rows, cols=cols, ewgt=ewgt)
 
 
 def graph_fingerprint(g: Graph, h: Hierarchy, tg: TaskGraph | None = None,
@@ -267,6 +267,7 @@ class _Request:
     started: bool = False           # counted in admission.inflight
     degradation: dict | None = None  # set when served below full quality
     view: HostView | None = None    # kept for a worker's payload only
+    queued_ns: int = 0              # time.perf_counter_ns() when queued
 
 
 def _dummy_host_graph(N: int, M: int):
@@ -446,6 +447,10 @@ class MappingService:
         graph, k > n, out-of-range edges, bad eps/strategy/preset) and
         :class:`ServiceClosedError` after :meth:`close`.
         """
+        with spans.span("service.submit") as sp:
+            return self._submit(g, h, config, priority, deadline_s, on_shed, sp)
+
+    def _submit(self, g, h, config, priority, deadline_s, on_shed, sp) -> Future:
         cfg = config or SharedMapConfig()
         tg = g if isinstance(g, TaskGraph) else None
         g = tg.to_graph(device=self.device) if tg is not None else g.to(self.device)
@@ -482,12 +487,13 @@ class MappingService:
                     self.telemetry["inflight_dedup"] += 1
                 return fut
             return self._admit_new(g, h, cfg, fp, gfp, fut, priority, deadline,
-                                   on_shed, view)
+                                   on_shed, view, sp)
 
     def _admit_new(self, g, h, cfg, fp, gfp, fut, priority, deadline,
-                   on_shed, view) -> Future:
+                   on_shed, view, sp) -> Future:
         """Admission decision for a non-cached, non-dedup request. Caller
-        holds ``_cv``."""
+        holds ``_cv``; ``sp`` is the submit's span, given the request's
+        ``seq`` once it is queued."""
         adm = self.admission
         waiting = min(((r.priority, -r.seq) for r in self._queue),
                       default=None)
@@ -546,10 +552,12 @@ class MappingService:
                 dedup.futures.append(fut)
                 return fut
         self._seq += 1
+        sp.set(req=self._seq)
         req = _Request(g=g, h=h, cfg=cfg, fp=fp, gfp=gfp, futures=[fut],
                        priority=priority, deadline=deadline, seq=self._seq,
                        degradation=degradation,
-                       view=view if self.supervisor is not None else None)
+                       view=view if self.supervisor is not None else None,
+                       queued_ns=time.perf_counter_ns())
         self._pending[fp] = req
         self._queue.append(req)
         adm.note_queued()
@@ -619,7 +627,7 @@ class MappingService:
         count for the same arguments.
         """
         backend = resolve_backend(backend, self.device)
-        t0 = time.time()
+        t0 = time.perf_counter_ns()
         if self.device.type == "cuda":
             from ..kernels import _build
             _build.library()
@@ -640,7 +648,7 @@ class MappingService:
                             salts=list(range(int(B))))
                         execute_group_batch([gr], self.device)
                         programs += 1
-        dt = time.time() - t0
+        dt = (time.perf_counter_ns() - t0) / 1e9
         with self._lock:
             self.telemetry["warmup"]["programs"] += programs
             self.telemetry["warmup"]["seconds"] += dt
@@ -776,11 +784,13 @@ class MappingService:
         self._sweep_expired_queue()
         self._queue.sort(key=lambda r: (-r.priority, r.seq))
         taken = []
+        now = time.perf_counter_ns()
         while self._queue and self.admission.has_capacity():
             req = self._queue.pop(0)
             self.admission.note_dequeued()
             self.admission.note_start()
             req.started = True
+            spans.record("service.queue", req.queued_ns, now, req=req.seq)
             taken.append(req)
         return taken
 
@@ -805,17 +815,21 @@ class MappingService:
             if newly and not active and self.batch_window_s > 0:
                 # idle service: hold the first arrivals briefly so a
                 # concurrent burst coalesces from level 0 on.
-                time.sleep(self.batch_window_s)
+                with spans.span("service.batch_window"):
+                    time.sleep(self.batch_window_s)
                 with self._cv:
                     newly += self._take_admissible()
             for req in newly:
                 try:
-                    self._admit(req, active)
+                    with spans.span("service.admit", req=req.seq):
+                        self._admit(req, active)
                 except BaseException as exc:  # fail fast, never hang callers
                     self._fail(req, exc)
             if active:
                 try:
-                    self._step(active)
+                    with spans.span("service.round") as rnd:
+                        members, dispatches = self._step(active)
+                        rnd.set(members=members, dispatches=dispatches)
                 except BaseException as exc:
                     # last-resort containment: _step already isolates
                     # per-request failures, so reaching here means the
@@ -844,7 +858,8 @@ class MappingService:
                     seed=req.cfg.seed, adaptive=req.cfg.adaptive,
                     backend=req.cfg.backend, strategy=req.cfg.strategy,
                     resident=self._resident_override(req.cfg),
-                    checkpoint=lambda req=req: self._planner_checkpoint(req))
+                    checkpoint=lambda req=req: self._planner_checkpoint(req),
+                    req=req.seq)
             except BaseException as exc:
                 self._fail(req, exc)
                 return
@@ -859,8 +874,9 @@ class MappingService:
             return False
         return None
 
-    def _step(self, active: list[_Request]) -> None:
-        """One coalesced execution round over all active planners.
+    def _step(self, active: list[_Request]) -> tuple[int, int]:
+        """One coalesced execution round over all active planners; returns
+        the lanes and the dispatches it ran.
 
         Failure containment: planning, dispatch and advance are guarded
         per request or per merged set; a failure removes only the requests
@@ -886,23 +902,27 @@ class MappingService:
         # dispatch ALL merged sets before fetching any, as the reference
         # does: kernels queue on the device's stream.
         inflight = []
+        round_lanes = round_dispatches = 0
         for entries in merged.values():
             groups = [e[2] for e in entries]
+            members = sum(len(gr.members) for gr in groups)
             try:
-                self.faults.check("dispatch")
-                if self.merge_across_requests:
-                    handles = [dispatch_group_batch(
-                        groups, self.device, pad_batch_pow2=self.pad_batch_pow2)]
-                    dispatches = 1
-                else:
-                    handles = [dispatch_group_batch([gr], self.device)
-                               for gr in groups]
-                    dispatches = len(groups)
+                with spans.span("service.dispatch", lanes=members):
+                    self.faults.check("dispatch")
+                    if self.merge_across_requests:
+                        handles = [dispatch_group_batch(
+                            groups, self.device, pad_batch_pow2=self.pad_batch_pow2)]
+                        dispatches = 1
+                    else:
+                        handles = [dispatch_group_batch([gr], self.device)
+                                   for gr in groups]
+                        dispatches = len(groups)
             except BaseException as exc:
                 inflight.append((entries, None, exc))
                 continue
             inflight.append((entries, handles, None))
-            members = sum(len(gr.members) for gr in groups)
+            round_lanes += members
+            round_dispatches += dispatches
             with self._lock:
                 co = self.telemetry["coalesce"]
                 co["dispatches"] += dispatches
@@ -949,6 +969,7 @@ class MappingService:
             # worker pool: it overlaps the next levels' dispatches instead
             # of serializing behind them in the scheduler thread.
             self._fallback.submit(self._finalize_job, req, req.planner.result())
+        return round_lanes, round_dispatches
 
     def _execute_isolated(self, entries) -> dict:
         """Solo re-execution of each (request, group) from a failed merged
@@ -1029,11 +1050,12 @@ class MappingService:
                 return
 
     def _finalize_job(self, req: _Request, ms_result) -> None:
-        try:
-            self.faults.check("finalize")
-            self._finalize(req, ms_result)
-        except BaseException as exc:
-            self._contain(req, exc)
+        with spans.span("service.finalize", req=req.seq):
+            try:
+                self.faults.check("finalize")
+                self._finalize(req, ms_result)
+            except BaseException as exc:
+                self._contain(req, exc)
 
     def _finalize(self, req: _Request, ms_result) -> None:
         pe_of = capi.finalize_mapping(req.g, req.h, req.cfg,
